@@ -25,14 +25,34 @@
 // 2x2 means of acc and T in shared memory and writes the 8x8 output tile:
 // compositing is linear, so out = acc_down + T_down * bg stays exact.
 //
-// What bounds it on Hopper. Per (entry, pixel) pair the thread does ~20 FP32
-// ops and one expf; the stream bytes are read once per tile (~80 B per
-// entry at C = 12), so the kernel is bound by the SM's FP32/SFU issue rate
-// and by the serial dependence of each pixel's walk, not by HBM bandwidth.
+// What bounds it on Hopper. Every walked (entry, pixel) pair costs its alpha
+// and the two skip tests (16 FP32 operations, one of them expf); only a live
+// pair (not skipped) goes on to the 4 + 2C operations of compositing, and on
+// 16x16 tiles under 3-sigma rects a few percent to a fifth of the walked
+// pairs are live. The stream bytes are read once per tile (80 B per entry at
+// C = 12). The floor of this work on an H100 is then set by bytes on the
+// learned streams and by operations on dense analytic ones; the kernel is
+// far above either floor, held by the serial dependence of each pixel's walk
+// and by one CTA per tile leaving SMs empty when few tiles are non-empty.
 // Big tiles (thousands of entries) run long on one SM while small ones end
 // early; the per-tile CTA grid lets the hardware scheduler backfill SMs.
 // Later work: cp.async double-buffering of the next chunk, and splitting the
 // walk so tiles with many entries use more than one CTA.
+//
+// Contributor count (kContrib). The training forward replaces the TPU launch
+// gpcr_tpu/ops/rasterize_stream_vjp.py::_fwd_impl (pl.pallas_call of
+// _stream_kernel with with_contrib=True, downscale 1). Beside acc and T it
+// writes, per pixel, how many positions of the tile's range [s, e) the pixel
+// walked before it stopped: the in-tile index of the crossing entry when it
+// terminated, else e - s. Skipped entries count as positions. The replay
+// backward (stream_blend_bwd.cu) masks entries at or past this count. The
+// count is one int register and one store per pixel (4 B beside the 52 B of
+// acc and T at C = 12), so what bounds the kernel is unchanged.
+// It is a template flag so that the serving instantiation carries no extra
+// register or branch; the TPU kernel's count also runs over the padding rows
+// of a tile's last chunk, which this kernel never stages, so a pixel that
+// never terminates reports e - s here (the backward's pos < e mask makes the
+// two equivalent).
 //
 // Numerics. Built with -fmad=false and without --use_fast_math, and using
 // expf, so each (entry, pixel) alpha and every transmittance product is the
@@ -47,13 +67,14 @@ namespace {
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;
 
-template <int C>
+template <int C, bool kContrib>
 __global__ void __launch_bounds__(kPix)
 stream_blend_kernel(const float* __restrict__ stream, int ncols,
                     const int* __restrict__ starts,
                     const int* __restrict__ order, int grid_x, int chunk,
                     int downscale, float* __restrict__ acc_out,
-                    float* __restrict__ t_out) {
+                    float* __restrict__ t_out,
+                    int* __restrict__ n_contrib_out) {
   extern __shared__ float smem[];
   float* rows = smem;  // chunk * ncols staged stream rows
 
@@ -69,6 +90,7 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
   int done = 0;
+  int cnt = e - s;  // kContrib: positions walked by a pixel that never stops
 
   for (int base = s; base < e; base += chunk) {
     const int n = min(chunk, e - base);
@@ -89,6 +111,7 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
         const float test_T = T * (1.0f - alpha);
         if (test_T < 0.0001f) {
           done = 1;
+          if (kContrib) cnt = base - s + j;
           break;
         }
         const float w = alpha * T;
@@ -105,6 +128,7 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
 #pragma unroll
     for (int c = 0; c < C; ++c) dst[c] = acc[c];
     t_out[(size_t)tile * kPix + tid] = T;
+    if (kContrib) n_contrib_out[(size_t)tile * kPix + tid] = cnt;
     return;
   }
   // downscale == 2: 2x2 means through shared memory (stride C + 1 floats
@@ -131,42 +155,41 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
   }
 }
 
-template <int C>
+template <int C, bool kContrib>
 cudaError_t launch(const float* stream, int ncols, const int* starts,
                    const int* order, int n_order, int grid_x, int chunk,
                    int downscale, float* acc_out, float* t_out,
-                   cudaStream_t cuda_stream) {
+                   int* n_contrib_out, cudaStream_t cuda_stream) {
   size_t smem = (size_t)chunk * ncols * sizeof(float);
   if (downscale == 2) smem += (size_t)kPix * (C + 1) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      stream_blend_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stream_blend_kernel<C, kContrib>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, or the caller's next launch check sees it
     return err;
   }
-  stream_blend_kernel<C><<<n_order, kPix, smem, cuda_stream>>>(
-      stream, ncols, starts, order, grid_x, chunk, downscale, acc_out, t_out);
+  stream_blend_kernel<C, kContrib><<<n_order, kPix, smem, cuda_stream>>>(
+      stream, ncols, starts, order, grid_x, chunk, downscale, acc_out, t_out,
+      n_contrib_out);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Returns a cudaError_t value: 0 on a successful launch.
-int gpcr_stream_blend(const float* stream, int ncols, const int* starts,
-                      const int* order, int n_order, int grid_x, int channels,
-                      int chunk, int downscale, float* acc_out, float* t_out,
-                      void* cuda_stream) {
+template <bool kContrib>
+int dispatch(const float* stream, int ncols, const int* starts,
+             const int* order, int n_order, int grid_x, int channels,
+             int chunk, int downscale, float* acc_out, float* t_out,
+             int* n_contrib_out, void* cuda_stream) {
   if (n_order <= 0) return (int)cudaSuccess;
   if (chunk <= 0 || ncols < 8 + channels || (downscale != 1 && downscale != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)cuda_stream;
-#define GPCR_CASE(NC)                                                       \
-  case NC:                                                                  \
-    return (int)launch<NC>(stream, ncols, starts, order, n_order, grid_x,   \
-                           chunk, downscale, acc_out, t_out, st);
+#define GPCR_CASE(NC)                                                      \
+  case NC:                                                                 \
+    return (int)launch<NC, kContrib>(stream, ncols, starts, order, n_order, \
+                                     grid_x, chunk, downscale, acc_out,    \
+                                     t_out, n_contrib_out, st);
   switch (channels) {
     GPCR_CASE(1) GPCR_CASE(2) GPCR_CASE(3) GPCR_CASE(4) GPCR_CASE(5)
     GPCR_CASE(6) GPCR_CASE(7) GPCR_CASE(8) GPCR_CASE(9) GPCR_CASE(10)
@@ -176,6 +199,33 @@ int gpcr_stream_blend(const float* stream, int ncols, const int* starts,
       return (int)cudaErrorInvalidValue;
   }
 #undef GPCR_CASE
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both return a cudaError_t value: 0 on a successful launch.
+int gpcr_stream_blend(const float* stream, int ncols, const int* starts,
+                      const int* order, int n_order, int grid_x, int channels,
+                      int chunk, int downscale, float* acc_out, float* t_out,
+                      void* cuda_stream) {
+  return dispatch<false>(stream, ncols, starts, order, n_order, grid_x,
+                         channels, chunk, downscale, acc_out, t_out, nullptr,
+                         cuda_stream);
+}
+
+// The training forward: native resolution, plus n_contrib_out
+// (num_tiles, 256) i32 written at each rendered tile's own position.
+int gpcr_stream_blend_contrib(const float* stream, int ncols,
+                              const int* starts, const int* order, int n_order,
+                              int grid_x, int channels, int chunk,
+                              float* acc_out, float* t_out, int* n_contrib_out,
+                              void* cuda_stream) {
+  if (n_contrib_out == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(stream, ncols, starts, order, n_order, grid_x,
+                        channels, chunk, 1, acc_out, t_out, n_contrib_out,
+                        cuda_stream);
 }
 
 const char* gpcr_cuda_error_string(int code) {

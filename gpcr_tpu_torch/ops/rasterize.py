@@ -4,9 +4,11 @@ dispatcher (port of ``gpcr_tpu/ops/rasterize.py``).
 The port has ONE forward path: preprocess here, then bin + blend in
 ``ops/rasterize_stream.py``, whose blend launches the hand-written CUDA
 kernel for CUDA tensors and runs its plain PyTorch version for CPU
-tensors. There is no separate XLA-style blend and no silent switch of
-device: the tensors' device decides, and a CUDA run that cannot launch
-the kernel raises.
+tensors. With ``config.differentiable`` the same path runs inside the
+``torch.autograd.Function`` of ``ops/rasterize_stream_vjp.py``, whose
+backward is the replay kernel. There is no separate XLA-style blend and no
+silent switch of device: the tensors' device decides, and a CUDA run that
+cannot launch a kernel raises.
 """
 
 from __future__ import annotations
@@ -27,11 +29,15 @@ class RasterizeConfig(T.NamedTuple):
     16x16 tiles only), ``max_dup_per_gaussian``, ``chunk_size`` (stream
     rows staged per step), ``tile_batch`` (tiles per step of the plain
     blend, which bounds its memory), ``k_budget``, ``max_active_tiles``,
-    ``downscale`` and ``opacity_radius``.
+    ``downscale``, ``opacity_radius`` and ``differentiable`` (route to
+    ``rasterize_gaussians_stream_diff``: gradients through the replay
+    backward, native resolution).
 
-    Fields kept for API parity with NO effect here: ``max_chunks``,
-    ``differentiable`` and ``scan_impl`` (training, a later port);
-    ``impl`` (there is one forward path); ``tiles_per_step``, ``scan`` and
+    Fields kept for API parity with NO effect here: ``max_chunks`` and
+    ``scan_impl`` (they shape the JAX package's scan-based differentiable
+    path, which the port does not have: its backward replays every
+    entry, so nothing is truncated); ``impl`` (there is one forward
+    path); ``tiles_per_step``, ``scan`` and
     ``feat_precision`` (TPU grid-step, transmittance-scan and bf16-MXU
     devices — the CUDA kernel composites sequentially and accumulates in
     float32, which is the JAX "highest" semantics).
@@ -204,11 +210,14 @@ def rasterize_gaussians(
             "Please provide exactly one of either scale/rotation pair or "
             "precomputed 3D covariance!")
     if config.differentiable:
-        raise NotImplementedError(
-            "the differentiable rasterizer (training) is not ported yet")
-    from .rasterize_stream import rasterize_gaussians_stream
+        from .rasterize_stream_vjp import rasterize_gaussians_stream_diff
 
-    return rasterize_gaussians_stream(
+        fn = rasterize_gaussians_stream_diff
+    else:
+        from .rasterize_stream import rasterize_gaussians_stream
+
+        fn = rasterize_gaussians_stream
+    return fn(
         means3d, opacities, settings,
         scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
         shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,

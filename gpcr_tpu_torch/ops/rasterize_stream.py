@@ -22,7 +22,9 @@ Pallas kernel):
 The blend (``blend_tiles``) launches the CUDA kernel
 ``csrc/stream_blend.cu`` for CUDA tensors and runs ``blend_tiles_plain``
 for CPU tensors. It never falls back: a CUDA run that cannot build or
-launch the kernel raises.
+launch the kernel raises. With ``with_contrib`` (the training forward,
+``ops/rasterize_stream_vjp.py``) both also return the per-pixel
+contributor count the replay backward needs.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ STREAM_FEAT_COL = 8
 # ``_blend_tiles_cuda`` call that reached the kernel); read and reset by
 # callers that need to show a run went through the kernel
 LAUNCHES = 0
+# the same for the kernel's contributor-count instantiation (training)
+LAUNCHES_CONTRIB = 0
 
 
 def _round_up(x, m):
@@ -144,20 +148,32 @@ def blend_tiles(
     grid_x: int,
     channels: int,
     config: R.RasterizeConfig,
+    with_contrib: bool = False,
 ):
     """Composite the tiles listed in ``order`` over their stream ranges.
 
     Returns (acc (num_tiles, P_out, C), T (num_tiles, P_out)) in tile
     order; tiles not in ``order`` keep acc 0 and T 1. CUDA tensors run
     the CUDA kernel, CPU tensors the plain PyTorch version.
+
+    ``with_contrib`` (``downscale == 1`` only) adds n_contrib
+    (num_tiles, P) int32: per pixel, the number of positions of its
+    tile's range it walked before it stopped — the in-tile index of the
+    crossing entry where the pixel terminated, else the length of the
+    range; skipped entries count. Tiles not in ``order`` keep 0.
     """
+    if with_contrib and config.downscale != 1:
+        raise ValueError("with_contrib renders at native resolution "
+                         "(downscale 1)")
     if stream.is_cuda:
         return _blend_tiles_cuda(
-            stream, starts, order, num_tiles, grid_x, channels, config)
+            stream, starts, order, num_tiles, grid_x, channels, config,
+            with_contrib)
     if stream.device.type != "cpu":
         raise ValueError(f"no blend for device {stream.device}")
     return blend_tiles_plain(
-        stream, starts, order, num_tiles, grid_x, channels, config)
+        stream, starts, order, num_tiles, grid_x, channels, config,
+        with_contrib)
 
 
 def blend_tiles_plain(
@@ -168,6 +184,8 @@ def blend_tiles_plain(
     grid_x: int,
     channels: int,
     config: R.RasterizeConfig,
+    with_contrib: bool = False,
+    with_live: bool = False,
 ):
     """The plain PyTorch version of the blend kernel (any device).
 
@@ -180,7 +198,15 @@ def blend_tiles_plain(
     (``cumprod`` over a non-innermost dimension is sequential on both CPU
     and CUDA). The crossing entry (T·(1−α) < 1e-4) and all later ones are
     excluded, as in the kernel.
+
+    ``with_live`` (with ``with_contrib``; measurement only, the kernel has
+    no such output) adds n_live (num_tiles, P) int32: of the positions a
+    pixel walked, those it composited (alpha neither skipped nor zero). The
+    others cost only the alpha test, so a bound on the blend's work charges
+    the compositing to ``n_live.sum()`` pairs and not to ``n_contrib.sum()``.
     """
+    if with_live and not with_contrib:
+        raise ValueError("with_live counts among the with_contrib positions")
     tx, ty = config.tile_x, config.tile_y
     p = tx * ty
     ds = config.downscale
@@ -190,6 +216,8 @@ def blend_tiles_plain(
     acc_all = torch.zeros((num_tiles, p, channels), dtype=torch.float32,
                           device=dev)
     t_all = torch.ones((num_tiles, p), dtype=torch.float32, device=dev)
+    cnt_all = torch.zeros((num_tiles, p), dtype=torch.int32, device=dev)
+    live_all = torch.zeros((num_tiles, p), dtype=torch.int32, device=dev)
     lx = (torch.arange(p, device=dev) % tx).to(torch.float32)
     ly = (torch.arange(p, device=dev) // tx).to(torch.float32)
     steps = torch.arange(chunk, device=dev)
@@ -211,6 +239,8 @@ def blend_tiles_plain(
         T_run = torch.ones((nb, p), dtype=torch.float32, device=dev)
         acc = torch.zeros((nb, p, channels), dtype=torch.float32, device=dev)
         dead = torch.zeros((nb, p), dtype=torch.bool, device=dev)
+        cnt = torch.zeros((nb, p), dtype=torch.int32, device=dev)
+        live = torch.zeros((nb, p), dtype=torch.int32, device=dev)
         for k0 in range(0, max_cnt, chunk):
             # a step spans at most the batch's longest remaining range
             rows_k = steps[:min(chunk, max_cnt - k0)]
@@ -236,11 +266,23 @@ def blend_tiles_plain(
             w = torch.where(applied, a * t_excl, torch.zeros_like(a))
             acc = acc + torch.bmm(w.transpose(1, 2), rows[:, :, c0:c0 + channels])
             T_run = torch.where(applied, t_incl, T_run[:, None, :]).amin(dim=1)
+            if with_contrib:
+                # positions walked: in range, before the crossing entry
+                cnt = cnt + (applied & in_r).sum(dim=1, dtype=torch.int32)
+            if with_live:
+                # a is zero out of range, so these are in-range positions
+                live = live + (applied & (a > 0)).sum(dim=1, dtype=torch.int32)
             dead = dead | crossed[:, -1, :]
             if bool(dead.all()):
                 break
         acc_all[tiles] = acc
         t_all[tiles] = T_run
+        cnt_all[tiles] = cnt
+        live_all[tiles] = live
+    if with_live:
+        return acc_all, t_all, cnt_all, live_all
+    if with_contrib:
+        return acc_all, t_all, cnt_all
     if ds == 1:
         return acc_all, t_all
     if ds != 2:
@@ -251,14 +293,13 @@ def blend_tiles_plain(
             t_d.mean(dim=(2, 4)).reshape(num_tiles, p // 4))
 
 
-def _blend_tiles_cuda(stream, starts, order, num_tiles, grid_x, channels,
-                      config: R.RasterizeConfig):
-    """Launch ``csrc/stream_blend.cu`` on the current CUDA stream."""
-    global LAUNCHES
+def check_blend_inputs(stream, starts, order, num_tiles, channels,
+                       config: R.RasterizeConfig) -> None:
+    """Raise on what the CUDA blend kernels (forward and backward) do not
+    take: they read raw pointers, so device, dtype, shape and contiguity
+    are checked here."""
     if (config.tile_x, config.tile_y) != (16, 16):
         raise ValueError("the CUDA blend kernel takes 16x16 tiles only")
-    if config.downscale not in (1, 2):
-        raise ValueError(f"downscale {config.downscale} not supported (1 or 2)")
     if not 1 <= channels <= 16:
         raise ValueError(f"the CUDA blend kernel takes 1..16 channels, got {channels}")
     dev = stream.device
@@ -276,22 +317,46 @@ def _blend_tiles_cuda(stream, starts, order, num_tiles, grid_x, channels,
                          f"{channels} feature columns")
     if starts.shape != (num_tiles + 1,):
         raise ValueError(f"starts must be ({num_tiles + 1},)")
+
+
+def _blend_tiles_cuda(stream, starts, order, num_tiles, grid_x, channels,
+                      config: R.RasterizeConfig, with_contrib: bool = False):
+    """Launch ``csrc/stream_blend.cu`` on the current CUDA stream."""
+    global LAUNCHES, LAUNCHES_CONTRIB
+    if config.downscale not in (1, 2):
+        raise ValueError(f"downscale {config.downscale} not supported (1 or 2)")
+    check_blend_inputs(stream, starts, order, num_tiles, channels, config)
+    dev = stream.device
     p_out = 256 // (config.downscale ** 2)
     acc = torch.zeros((num_tiles, p_out, channels), dtype=torch.float32,
                       device=dev)
     t = torch.ones((num_tiles, p_out), dtype=torch.float32, device=dev)
+    cnt = (torch.zeros((num_tiles, p_out), dtype=torch.int32, device=dev)
+           if with_contrib else None)
     if order.numel() == 0:
-        return acc, t
+        return (acc, t, cnt) if with_contrib else (acc, t)
     lib = _stream_blend_lib()
-    rc = lib.gpcr_stream_blend(
-        stream.data_ptr(), stream.shape[1], starts.data_ptr(),
-        order.data_ptr(), order.numel(), grid_x, channels,
-        config.chunk_size, config.downscale, acc.data_ptr(), t.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+    if with_contrib:
+        rc = lib.gpcr_stream_blend_contrib(
+            stream.data_ptr(), stream.shape[1], starts.data_ptr(),
+            order.data_ptr(), order.numel(), grid_x, channels,
+            config.chunk_size, acc.data_ptr(), t.data_ptr(), cnt.data_ptr(),
+            cuda_stream,
+        )
+    else:
+        rc = lib.gpcr_stream_blend(
+            stream.data_ptr(), stream.shape[1], starts.data_ptr(),
+            order.data_ptr(), order.numel(), grid_x, channels,
+            config.chunk_size, config.downscale, acc.data_ptr(), t.data_ptr(),
+            cuda_stream,
+        )
     if rc != 0:
         msg = lib.gpcr_cuda_error_string(rc).decode()
         raise RuntimeError(f"stream_blend launch failed: {msg} ({rc})")
+    if with_contrib:
+        LAUNCHES_CONTRIB += 1
+        return acc, t, cnt
     LAUNCHES += 1
     return acc, t
 
@@ -303,6 +368,9 @@ def _stream_blend_lib():
         lib.gpcr_stream_blend.argtypes = [
             vp, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.gpcr_stream_blend.restype = ci
+        lib.gpcr_stream_blend_contrib.argtypes = [
+            vp, ci, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+        lib.gpcr_stream_blend_contrib.restype = ci
         lib.gpcr_cuda_error_string.argtypes = [ci]
         lib.gpcr_cuda_error_string.restype = ctypes.c_char_p
         lib._gpcr_typed = True
@@ -314,6 +382,20 @@ def _stream_blend_lib():
 # --------------------------------------------------------------------------
 
 
+def render_order(starts, overflow, num_tiles: int,
+                 config: R.RasterizeConfig):
+    """Tiles to render, in descending entry-count order: (order (G,) i32,
+    overflow). With ``max_active_tiles`` only the first ones render and
+    the entries of the rest are added to ``overflow`` (their pixels keep
+    the background)."""
+    counts = starts[1:] - starts[:-1]
+    order = torch.argsort(-counts, stable=True).to(torch.int32)
+    n_grid = min(config.max_active_tiles or num_tiles, num_tiles)
+    if n_grid < num_tiles:
+        overflow = overflow + torch.sum(counts[order[n_grid:].long()])
+    return order[:n_grid].contiguous(), overflow
+
+
 def blend_stream(
     prep: R.Preprocessed,
     bg: torch.Tensor,  # (C,)
@@ -323,21 +405,13 @@ def blend_stream(
     channels: int,
 ):
     """Bin + blend. Returns (out (num_tiles, P_out, C), final_T
-    (num_tiles, P_out), overflow () i64).
-
-    Tiles are rendered in descending entry-count order; with
-    ``max_active_tiles`` only the first ones render and the entries of the
-    rest count as overflow (their pixels keep the background).
-    """
+    (num_tiles, P_out), overflow () i64). Tiles render in
+    ``render_order``."""
     stream, starts, overflow = bin_sorted_stream(prep, num_tiles, grid_x,
                                                  config)
-    counts = starts[1:] - starts[:-1]
-    order = torch.argsort(-counts, stable=True).to(torch.int32)
-    n_grid = min(config.max_active_tiles or num_tiles, num_tiles)
-    if n_grid < num_tiles:
-        overflow = overflow + torch.sum(counts[order[n_grid:].long()])
-    acc, t_run = blend_tiles(stream, starts, order[:n_grid].contiguous(),
-                             num_tiles, grid_x, channels, config)
+    order, overflow = render_order(starts, overflow, num_tiles, config)
+    acc, t_run = blend_tiles(stream, starts, order, num_tiles, grid_x,
+                             channels, config)
     out = acc + t_run[..., None] * bg.to(acc.dtype)[None, None, :]
     return out, t_run, overflow
 

@@ -95,3 +95,15 @@ def load_jax_params(module: nn.Module, params: dict) -> nn.Module:
                                  f"{tuple(t.shape)}")
             t.copy_(v)
     return module
+
+
+def grads_to_jax_tree(module: nn.Module) -> dict:
+    """The module's ``.grad``s as a JAX-layout nested dict of numpy arrays
+    (the inverse name mapping of ``load_jax_params``), to lay beside
+    ``jax.grad``'s tree leaf by leaf. A parameter without a gradient gives
+    zeros."""
+    flat = {}
+    for k, p in module.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        flat[k] = g.detach().cpu().numpy()
+    return _nest(flat)

@@ -160,6 +160,30 @@ def fuse_view_features(campos, means3d, shs, normal, bg3, sh_degree,
     return torch.cat(feats, dim=-1), torch.cat(bgs, dim=-1)
 
 
+def _render_one_view(
+    view_t, full_t, campos,
+    means3d, scales, rotations, opacity, shs, normal, valid,
+    bg3, tanfov, height, width, sh_degree, config: R.RasterizeConfig,
+    with_normal: bool,
+):
+    """Render one view with all output channels fused into one pass
+    (the training path: gradients flow when ``config.differentiable``).
+    Returns (color (C, height, width), dup_overflow)."""
+    features, bg = fuse_view_features(
+        campos, means3d, shs, normal, bg3, sh_degree, with_normal)
+    settings = R.GaussianRasterizationSettings(
+        image_height=height, image_width=width, tanfovx=tanfov,
+        tanfovy=tanfov, bg=bg, scale_modifier=1.0, viewmatrix=view_t,
+        projmatrix=full_t, sh_degree=sh_degree, campos=campos,
+    )
+    color, _, extra = R.rasterize_gaussians(
+        means3d, opacity, settings, scales=scales, rotations=rotations,
+        colors_precomp=features, valid_mask=valid, config=config,
+        return_extra=True,
+    )
+    return color, extra["dup_overflow"]
+
+
 def render_views_fused(
     view_ts, full_ts, camposes,  # (q, 4, 4), (q, 4, 4), (q, 3)
     means3d, scales, rotations, opacity, shs, normal, valid,

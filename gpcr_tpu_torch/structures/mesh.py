@@ -1,0 +1,388 @@
+"""Triangle meshes and the ray-cast ground-truth oracle (port of the
+training-path part of ``gpcr_tpu/structures/mesh.py``).
+
+Host-side numpy, as in the JAX package: OBJ/MTL/texture loading, the
+preprocess (bbox centre to ``center_w``, uniform scale into
+[-scale, scale]), ``get_ray_intersection`` (barycentric weights
+(1-u-v, u, v), wrap-mode bilinear texture fetch at pixel centres,
+vertex-normal interpolation, miss -> zero normal, flip toward the ray
+origin) and ``sample_point_cloud`` for ``uniform`` and
+``uniform_quantized`` (round(xyz * scale) + offset, unique dedup).
+
+Not ported yet (each raises NotImplementedError): the z-buffer
+rasteriser and ``get_rgbd_image``, the ``poisson_disk`` and
+``uniform_camera`` sampling methods, and ``remesh``.
+"""
+
+from __future__ import annotations
+
+import os
+import typing as T
+
+import numpy as np
+
+from .pointcloud import PointCloud
+from .ray import Ray
+
+_LATER = "is not ported yet (ROADMAP queue 3: remaining structures)"
+
+# --------------------------------------------------------------------------
+# texture sampling (plib/uv_mapping.py UVMap semantics)
+# --------------------------------------------------------------------------
+
+
+def sample_texture(texture: np.ndarray, uv: np.ndarray) -> np.ndarray:
+    """Bilinear texture sampling with wrap mode and pixel-center alignment:
+    y = mod(v,1)·H − 0.5, x = mod(u,1)·W − 0.5 (UVMap.__call__)."""
+    h, w = texture.shape[:2]
+    uv = np.mod(uv, 1.0)
+    y = uv[..., 1] * h - 0.5
+    x = uv[..., 0] * w - 0.5
+    y0 = np.floor(y).astype(np.int64)
+    x0 = np.floor(x).astype(np.int64)
+    fy = (y - y0)[..., None]
+    fx = (x - x0)[..., None]
+
+    def at(yy, xx):
+        return texture[np.mod(yy, h), np.mod(xx, w)]
+
+    top = at(y0, x0) * (1 - fx) + at(y0, x0 + 1) * fx
+    bot = at(y0 + 1, x0) * (1 - fx) + at(y0 + 1, x0 + 1) * fx
+    return top * (1 - fy) + bot * fy
+
+
+def clean_mesh_uv(triangle_uvs: np.ndarray) -> np.ndarray:
+    """(F, 3, 2): wrap to [0,1); degenerate all-identical-uv triangles get a
+    small synthetic patch at the texture center (mesh_utils.py:13-36)."""
+    uvs = triangle_uvs.copy()
+    same = np.all(uvs[:, 0] == uvs[:, 1], axis=-1) & np.all(
+        uvs[:, 0] == uvs[:, 2], axis=-1
+    )
+    uvs[same, 0] = [0.5, 0.5]
+    uvs[same, 1] = [0.5, 0.51]
+    uvs[same, 2] = [0.51, 0.5]
+    return uvs - np.floor(uvs)
+
+
+def clean_texture(img: np.ndarray) -> np.ndarray:
+    """Gray/alpha textures -> rgb float [0,1] (mesh_utils.py:39-68)."""
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[-1] == 4:
+        img = img[..., :3]
+    if img.shape[-1] == 1:
+        img = np.repeat(img, 3, axis=-1)
+    return img.astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# OBJ loading (replaces o3d.io.read_triangle_mesh for the benchmark path)
+# --------------------------------------------------------------------------
+
+
+def load_obj(path: str, flip_texture_v: bool = True):
+    """Minimal OBJ+MTL loader: v/vt/vn/f (+usemtl with map_Kd or Kd).
+
+    Returns dict with vertices (V,3), triangles (F,3), triangle_uvs
+    (F,3,2) or None, vertex_normals (V,3) or None, textures [list of
+    (h,w,3) float], material_ids (F,).
+    """
+    verts, uvs, norms = [], [], []
+    faces = []  # (vidx3, vtidx3, vnidx3, mat)
+    materials: T.List[np.ndarray] = []
+    mat_index: T.Dict[str, int] = {}
+    cur_mat = -1
+    mtl_colors: T.Dict[str, T.Optional[np.ndarray]] = {}
+
+    def load_mtl(mtl_path):
+        if not os.path.exists(mtl_path):
+            return
+        name = None
+        with open(mtl_path, errors="replace") as f:
+            mtl_lines = f.readlines()
+        for line in mtl_lines:
+            ps = line.split()
+            if not ps:
+                continue
+            if ps[0] == "newmtl":
+                name = ps[1]
+                mtl_colors[name] = None
+            elif ps[0] == "Kd" and name:
+                if mtl_colors.get(name) is None:
+                    c = np.array([float(x) for x in ps[1:4]], np.float32)
+                    mtl_colors[name] = np.tile(c, (2, 2, 1))
+            elif ps[0] == "map_Kd" and name:
+                tex_path = os.path.join(os.path.dirname(mtl_path), ps[-1])
+                if os.path.exists(tex_path):
+                    from ..io.image import read_png
+
+                    img = clean_texture(read_png(tex_path))
+                    if flip_texture_v:
+                        img = img[::-1].copy()
+                    mtl_colors[name] = img
+
+    base = os.path.dirname(path)
+    with open(path, errors="replace") as f:
+        obj_lines = f.readlines()
+    for line in obj_lines:
+        ps = line.split()
+        if not ps:
+            continue
+        if ps[0] == "v":
+            verts.append([float(x) for x in ps[1:4]])
+        elif ps[0] == "vt":
+            uvs.append([float(ps[1]), float(ps[2])])
+        elif ps[0] == "vn":
+            norms.append([float(x) for x in ps[1:4]])
+        elif ps[0] == "mtllib":
+            load_mtl(os.path.join(base, " ".join(ps[1:])))
+        elif ps[0] == "usemtl":
+            nm = ps[1]
+            if nm not in mat_index:
+                mat_index[nm] = len(materials)
+                tex = mtl_colors.get(nm)
+                materials.append(
+                    tex if tex is not None else np.ones((2, 2, 3), np.float32)
+                )
+            cur_mat = mat_index[nm]
+        elif ps[0] == "f":
+            corner = []
+            for p in ps[1:]:
+                comp = p.split("/")
+                vi = int(comp[0])
+                ti = int(comp[1]) if len(comp) > 1 and comp[1] else 0
+                ni = int(comp[2]) if len(comp) > 2 and comp[2] else 0
+                corner.append((vi, ti, ni))
+            for k in range(1, len(corner) - 1):  # fan triangulation
+                faces.append((corner[0], corner[k], corner[k + 1], cur_mat))
+
+    V = np.asarray(verts, np.float32)
+    nf = len(faces)
+    tris = np.zeros((nf, 3), np.int32)
+    tri_uvs = np.zeros((nf, 3, 2), np.float32) if uvs else None
+    tri_ns = np.zeros((nf, 3), np.int32) if norms else None
+    mats = np.zeros((nf,), np.int32)
+    has_uv = has_n = False
+    for i, (a, b, c, m) in enumerate(faces):
+        for j, (vi, ti, ni) in enumerate((a, b, c)):
+            tris[i, j] = vi - 1 if vi > 0 else len(V) + vi
+            if uvs and ti:
+                tri_uvs[i, j] = uvs[ti - 1 if ti > 0 else len(uvs) + ti]
+                has_uv = True
+            if norms and ni:
+                tri_ns[i, j] = ni - 1 if ni > 0 else len(norms) + ni
+                has_n = True
+        mats[i] = max(m, 0)
+
+    vertex_normals = None
+    if has_n:
+        # map per-corner normals to a per-vertex average
+        vertex_normals = np.zeros((len(V), 3), np.float32)
+        np.add.at(vertex_normals, tris.reshape(-1),
+                  np.asarray(norms, np.float32)[tri_ns.reshape(-1)])
+        norms_len = np.linalg.norm(vertex_normals, axis=-1, keepdims=True)
+        vertex_normals = vertex_normals / np.maximum(norms_len, 1e-12)
+    return {
+        "vertices": V,
+        "triangles": tris,
+        "triangle_uvs": tri_uvs if has_uv else None,
+        "vertex_normals": vertex_normals,
+        "textures": materials or [np.ones((2, 2, 3), np.float32)],
+        "material_ids": mats,
+    }
+
+
+def compute_vertex_normals(vertices, triangles):
+    """Area-weighted vertex normals."""
+    v0 = vertices[triangles[:, 0]]
+    e1 = vertices[triangles[:, 1]] - v0
+    e2 = vertices[triangles[:, 2]] - v0
+    fn = np.cross(e1, e2)
+    vn = np.zeros_like(vertices)
+    for j in range(3):
+        np.add.at(vn, triangles[:, j], fn)
+    return vn / np.maximum(np.linalg.norm(vn, axis=-1, keepdims=True), 1e-12)
+
+
+# --------------------------------------------------------------------------
+# Mesh
+# --------------------------------------------------------------------------
+
+
+class Mesh:
+    def __init__(
+        self,
+        mesh_or_path,
+        scale: T.Optional[float] = 1.0,
+        center_w=(0.0, 0.0, 0.0),
+        clean: bool = True,
+    ):
+        if isinstance(mesh_or_path, str):
+            if mesh_or_path.lower().endswith(".obj"):
+                d = load_obj(mesh_or_path)
+            else:
+                raise NotImplementedError(
+                    "mesh loading supports .obj; got " + mesh_or_path
+                )
+        else:
+            d = dict(mesh_or_path)
+        self.vertices = np.asarray(d["vertices"], np.float32)
+        self.triangles = np.asarray(d["triangles"], np.int32)
+        self.triangle_uvs = d.get("triangle_uvs")
+        self.vertex_normals = d.get("vertex_normals")
+        self.textures = [clean_texture(t) for t in d.get("textures", [])]
+        self.material_ids = d.get(
+            "material_ids", np.zeros((len(self.triangles),), np.int32)
+        )
+
+        # preprocess (mesh_utils.preprocess_mesh)
+        if center_w is not None and len(self.vertices):
+            lo, hi = self.vertices.min(0), self.vertices.max(0)
+            self.vertices = self.vertices + (
+                np.asarray(center_w, np.float32) - (lo + hi) / 2.0
+            )
+        if scale is not None and len(self.vertices):
+            lo, hi = self.vertices.min(0), self.vertices.max(0)
+            s = np.max((hi - lo) / 2.0)
+            if s > 0:
+                self.vertices = self.vertices * (scale / s)
+        if clean and self.triangle_uvs is not None:
+            self.triangle_uvs = clean_mesh_uv(self.triangle_uvs)
+
+        if self.vertex_normals is None and len(self.vertices):
+            self.vertex_normals = compute_vertex_normals(
+                self.vertices, self.triangles
+            )
+
+        # cast(origins, dirs) -> (t, prim, u, v); built at the first cast
+        self._caster = None
+
+    # ---- ray casting -----------------------------------------------------
+
+    def _cast(self, origins, dirs):
+        if self._caster is None:
+            from ..native_bindings import make_caster
+
+            self._caster = make_caster(self.vertices, self.triangles)
+        return self._caster(origins, dirs)
+
+    def get_ray_intersection(self, ray: Ray) -> dict:
+        """Returns dict(ray_rgbs, ray_ts, surface_normals_w, hit_map) as
+        numpy arrays shaped (b, *m, ·)."""
+        o = ray.origins_w.detach().cpu().numpy().astype(np.float32)
+        d = ray.directions_w.detach().cpu().numpy().astype(np.float32)
+        shape = o.shape[:-1]
+        t, prim, u, v = self._cast(o.reshape(-1, 3), d.reshape(-1, 3))
+        hit = np.isfinite(t)
+        prim_safe = np.where(hit, prim, 0)
+        bary = np.stack([1 - u - v, u, v], axis=-1)  # (R, 3)
+        rgb, normals = self._interp_attributes(
+            prim_safe, bary, hit, d.reshape(-1, 3)
+        )
+
+        return {
+            "ray_rgbs": rgb.reshape(*shape, 3),
+            "ray_ts": t.reshape(shape),
+            "surface_normals_w": normals.reshape(*shape, 3),
+            "hit_map": hit.astype(np.float32).reshape(shape),
+        }
+
+    def _interp_attributes(self, prim_safe, bary, hit, dirs_flat):
+        """Shared fragment shading for ray-cast and raster hits: texture-uv
+        rgb interp (plib/render.py:96-180), vertex-normal interp
+        (plib/render.py:183-223), normal flip toward the viewer
+        (structures.py:3777-3780)."""
+        n = len(prim_safe)
+        if self.triangle_uvs is not None and self.textures:
+            vert_uv = self.triangle_uvs[prim_safe]  # (R, 3, 2)
+            uvq = np.sum(bary[..., None] * vert_uv, axis=-2)  # (R, 2)
+            mats = self.material_ids[prim_safe]
+            rgb = np.zeros((n, 3), np.float32)
+            for mid, tex in enumerate(self.textures):
+                sel = mats == mid
+                if sel.any():
+                    rgb[sel] = sample_texture(tex, uvq[sel])
+            rgb *= hit[:, None]
+        else:
+            rgb = np.ones((n, 3), np.float32) * hit[:, None]
+
+        vn = self.vertex_normals[self.triangles[prim_safe]]  # (R, 3, 3)
+        normals = np.sum(bary[..., None] * vn, axis=-2)
+        normals *= hit[:, None]
+        norm = np.linalg.norm(normals, axis=-1, keepdims=True)
+        normals = np.divide(normals, norm, out=np.zeros_like(normals),
+                            where=norm != 0)
+        normals = normals * (
+            -1 * np.sign(np.sum(normals * dirs_flat, axis=-1, keepdims=True))
+        )
+        return rgb, normals
+
+    # ---- sampling ----------------------------------------------------------
+
+    def _sample_uniform(self, num_points: int, rng) -> T.Tuple[np.ndarray, ...]:
+        v0 = self.vertices[self.triangles[:, 0]]
+        e1 = self.vertices[self.triangles[:, 1]] - v0
+        e2 = self.vertices[self.triangles[:, 2]] - v0
+        area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+        p = area / area.sum()
+        tri = rng.choice(len(area), size=num_points, p=p)
+        r1 = rng.rand(num_points)
+        r2 = rng.rand(num_points)
+        # standard uniform barycentric sampling
+        a = 1 - np.sqrt(r1)
+        b = np.sqrt(r1) * (1 - r2)
+        c = 1 - a - b
+        xyz = (
+            a[:, None] * self.vertices[self.triangles[tri, 0]]
+            + b[:, None] * self.vertices[self.triangles[tri, 1]]
+            + c[:, None] * self.vertices[self.triangles[tri, 2]]
+        )
+        bary = np.stack([a, b, c], axis=-1)
+        if self.triangle_uvs is not None and self.textures:
+            uvq = np.sum(bary[..., None] * self.triangle_uvs[tri], axis=-2)
+            mats = self.material_ids[tri]
+            rgb = np.zeros((num_points, 3), np.float32)
+            for mid, tex in enumerate(self.textures):
+                sel = mats == mid
+                if sel.any():
+                    rgb[sel] = sample_texture(tex, uvq[sel])
+        else:
+            rgb = np.ones((num_points, 3), np.float32)
+        vn = self.vertex_normals[self.triangles[tri]]
+        nrm = np.sum(bary[..., None] * vn, axis=-2)
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-12)
+        return xyz.astype(np.float32), rgb, nrm.astype(np.float32)
+
+    def sample_point_cloud(
+        self, num_points: int, method: str = "poisson_disk", seed: int = 0,
+        quantize_scale: float = 448.0, quantize_offset: float = 512.0,
+    ) -> PointCloud:
+        rng = np.random.RandomState(seed)
+        if method == "uniform":
+            xyz, rgb, nrm = self._sample_uniform(num_points, rng)
+        elif method == "uniform_quantized":
+            # quantize then dedup
+            xyz, rgb, nrm = self._sample_uniform(num_points, rng)
+            q = np.round(xyz * quantize_scale) + quantize_offset
+            # int64 keys: float32 packing collides above 2^24
+            qi = q.astype(np.int64)
+            _, idx = np.unique(
+                (qi[:, 0] * 2048 + qi[:, 1]) * 2048 + qi[:, 2],
+                return_index=True,
+            )
+            xyz, rgb, nrm = q[idx], rgb[idx], nrm[idx]
+        else:
+            raise NotImplementedError(
+                f"sample_point_cloud method {method!r} " + _LATER)
+        return PointCloud.from_numpy(xyz, rgb, nrm)
+
+    def get_rgbd_image(self, camera, render_method: str = "ray_cast"):
+        raise NotImplementedError("Mesh.get_rgbd_image " + _LATER)
+
+
+def remesh(mesh: Mesh, atlas_cols: T.Optional[int] = None,
+           margin: float = 0.1) -> Mesh:
+    raise NotImplementedError("remesh " + _LATER)

@@ -1,4 +1,4 @@
-"""Batched point clouds (port of the render-path part of
+"""Batched point clouds (port of the render- and training-path part of
 ``gpcr_tpu/structures/pointcloud.py``): (b, n, ·) attribute tensors with a
 validity mask."""
 
@@ -37,6 +37,9 @@ class PointCloud:
             return torch.ones((*self.xyz_w.shape[:2], 1), dtype=torch.bool,
                               device=self.xyz_w.device)
         return self.valid_mask.bool()
+
+    def get_num_valid_points(self, bidx: int = 0) -> torch.Tensor:
+        return self.get_valid_mask()[bidx, :, 0].sum()
 
     def __getitem__(self, ib) -> "PointCloud":
         if isinstance(ib, int):

@@ -1,0 +1,257 @@
+"""Training step for the learned splat renderer (port of
+``gpcr_tpu/train/trainer.py``).
+
+End-to-end differentiable quantize -> SparseUNet -> differentiable stream
+rasterizer (``ops/rasterize_stream_vjp.py``: contributor-count forward and
+replay-backward kernels) -> image losses, on one device. The JAX
+package's ``vmap``s over clouds and views are Python loops here.
+
+The optimizer reproduces the JAX package's optax chain
+(clip_by_global_norm -> adam with a linear-warmup schedule) exactly: the
+schedule is read at the update count BEFORE it is incremented, so the
+first update has learning rate 0, and the clip is
+``g * clip / max(|g|, clip)``.
+"""
+
+from __future__ import annotations
+
+import typing as T
+
+import torch
+
+from ..models.encoder import PCEncoder, PCMLInfo, assemble_input_features
+from ..ops import rasterize as R
+from ..ops import sparse
+from ..render.renderer import (_render_one_view, bilinear_resize,
+                               pcgc_rescale, pin_fp32)
+from . import losses as L
+
+
+class WarmupClipAdam:
+    """Global-norm clip, then Adam (b1 0.9, b2 0.999, eps 1e-8, no weight
+    decay) at a learning rate that rises linearly from 0 over
+    ``num_warmup_steps`` updates and then stays at ``learning_rate``."""
+
+    def __init__(self, params, learning_rate: float = 1e-5,
+                 num_warmup_steps: int = 4000, clip: float = 1.0):
+        self.params = list(params)
+        self.learning_rate = learning_rate
+        self.num_warmup_steps = num_warmup_steps
+        self.clip = clip
+        self.count = 0  # updates taken
+        self.adam = torch.optim.Adam(self.params, lr=learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8)
+
+    def lr_at(self, count: int) -> float:
+        if self.num_warmup_steps <= 0:
+            return self.learning_rate
+        frac = min(max(count / self.num_warmup_steps, 0.0), 1.0)
+        return self.learning_rate * frac
+
+    def zero_grad(self):
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self):
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if grads:
+            norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                                  for g in grads))
+            factor = self.clip / torch.clamp(norm, min=self.clip)
+            for g in grads:
+                g.mul_(factor)
+        lr = self.lr_at(self.count)
+        for group in self.adam.param_groups:
+            group["lr"] = lr
+        self.adam.step()
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict):
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
+
+def make_optimizer(params, learning_rate: float = 1e-5,
+                   num_warmup_steps: int = 4000,
+                   clip: float = 1.0) -> WarmupClipAdam:
+    """adam + linear warmup + grad clip (options.yaml optim_info)."""
+    return WarmupClipAdam(params, learning_rate, num_warmup_steps, clip)
+
+
+class Trainer:
+    def __init__(
+        self,
+        info: T.Union[dict, PCMLInfo],
+        render_hw: T.Tuple[int, int] = (64, 64),
+        super_sample_rate: int = 1,
+        weights: L.LossWeights = L.LossWeights(),
+        raster_config: T.Optional[R.RasterizeConfig] = None,
+        offset: int = 512,
+        model: T.Optional[PCEncoder] = None,
+        device="cuda",
+        generator: T.Optional[torch.Generator] = None,
+        learning_rate: float = 1e-5,
+        num_warmup_steps: int = 4000,
+        clip: float = 1.0,
+    ):
+        self.info = (info if isinstance(info, PCMLInfo)
+                     else PCMLInfo.from_dict(info))
+        self.device = torch.device(device)
+        if model is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            model = PCEncoder(self.info, generator=generator)
+        self.model = model.to(self.device).train()
+        self.render_hw = render_hw
+        self.ss = super_sample_rate
+        self.weights = weights
+        self.offset = offset
+        # the differentiable path goes through the replay-kernel backward:
+        # no chunk truncation. k_budget / max_active_tiles stay None (the
+        # budgets are workload-specific; pass a raster_config to set them)
+        self.config = raster_config or R.RasterizeConfig(
+            max_dup_per_gaussian=16, chunk_size=64, tile_batch=8,
+            differentiable=True, max_chunks=16, impl="stream",
+        )
+        self.optimizer = make_optimizer(
+            self.model.parameters(), learning_rate, num_warmup_steps, clip)
+        self.step_count = 0
+
+    # ---- forward ---------------------------------------------------------
+
+    def _encode_splats(self, coords, rgb, valid):
+        """Quantize one cloud, run the network and turn its output into
+        world-space splats: (means, scales, rotation, opacity, sh, normal,
+        valid, with_normal)."""
+        info = self.info
+        feats = assemble_input_features(info, coords, rgb, self.offset)
+        grid = sparse.quantize_average(coords, feats, valid=valid)
+        plan = self.model.build_plan(grid)
+        sp = self.model(grid, plan)
+
+        means = pcgc_rescale(sp.primitives, self.offset, info.scale_factor)
+        radius = (3.0 ** 0.5) / info.scale_factor * 6
+        scales = sp.scale * radius
+        opacity = sp.opacity[:, 0]
+        with_normal = sp.normal is not None
+        normal = sp.normal if with_normal else torch.zeros_like(means)
+        return (means, scales, sp.rotation, opacity, sp.sh, normal, sp.valid,
+                with_normal)
+
+    def _per_cloud_render(self, coords, rgb, valid, view_t, full_t, campos,
+                          tanfov):
+        """Encode one cloud and render every view; returns the out dict
+        {'rgb','hitmap','normal'} with (V, h, w, C) images plus
+        'dup_overflow' (V,)."""
+        (means, scales, rotation, opacity, sh, normal, splat_valid,
+         with_normal) = self._encode_splats(coords, rgb, valid)
+
+        h, w = self.render_hw
+        bg3 = torch.zeros((3,), device=means.device)
+        colors, overflow = [], []
+        for vt, ft, cp in zip(view_t, full_t, campos):
+            color, ovf = _render_one_view(
+                vt, ft, cp, means, scales, rotation, opacity, sh,
+                normal, splat_valid, bg3, tanfov, h * self.ss, w * self.ss,
+                self.info.sh_deg, self.config, with_normal,
+            )
+            if self.ss > 1:
+                color = bilinear_resize(color, h, w)
+            colors.append(color)  # (C, h, w)
+            overflow.append(ovf)
+        colors = torch.stack(colors)  # (V, C, h, w)
+        return {
+            "rgb": colors[:, 0:3].permute(0, 2, 3, 1),
+            "hitmap": colors[:, 6:9].permute(0, 2, 3, 1),
+            "normal": (colors[:, 9:12].permute(0, 2, 3, 1) if with_normal
+                       else None),
+            "dup_overflow": torch.stack(overflow),
+        }
+
+    def _per_cloud_loss(self, coords, rgb, valid, view_t, full_t, campos,
+                        gt_rgb, gt_normal, gt_hit, tanfov):
+        out = self._per_cloud_render(
+            coords, rgb, valid, view_t, full_t, campos, tanfov)
+        gt = {"rgb": gt_rgb, "normal_w": gt_normal, "hit_map": gt_hit}
+        total, terms = L.render_losses(out, gt, self.weights)
+        return total, terms, out["dup_overflow"]
+
+    def loss_fn(self, batch: dict):
+        """batch: coords/rgb/valid (B, N, ·); view_t/full_t (B, V, 4, 4);
+        campos (B, V, 3); gt_rgb/gt_normal (B, V, h, w, 3);
+        gt_hit (B, V, h, w, 1); tanfov scalar. Returns (mean total, mean
+        terms); the dropped splat-tile entries of the batch are left in
+        ``self.last_dup_overflow``."""
+        pin_fp32()
+        totals, terms_all, overflow = [], [], []
+        for ib in range(batch["coords"].shape[0]):
+            total, terms, ovf = self._per_cloud_loss(
+                batch["coords"][ib], batch["rgb"][ib], batch["valid"][ib],
+                batch["view_t"][ib], batch["full_t"][ib], batch["campos"][ib],
+                batch["gt_rgb"][ib], batch["gt_normal"][ib],
+                batch["gt_hit"][ib], float(batch["tanfov"]),
+            )
+            totals.append(total)
+            terms_all.append(terms)
+            overflow.append(ovf.sum())
+        self.last_dup_overflow = torch.stack(overflow).sum()
+        mean_terms = {k: torch.mean(torch.stack([t[k] for t in terms_all]))
+                      for k in terms_all[0]}
+        return torch.mean(torch.stack(totals)), mean_terms
+
+    @torch.no_grad()
+    def eval_psnr(self, batch: dict) -> torch.Tensor:
+        """Render every (cloud, view) of a batch and score the PSNR of the
+        rgb channels against the ray-cast ground truth."""
+        pin_fp32()
+        psnrs = []
+        for ib in range(batch["coords"].shape[0]):
+            out = self._per_cloud_render(
+                batch["coords"][ib], batch["rgb"][ib], batch["valid"][ib],
+                batch["view_t"][ib], batch["full_t"][ib], batch["campos"][ib],
+                float(batch["tanfov"]))
+            mse = torch.mean((out["rgb"] - batch["gt_rgb"][ib]) ** 2)
+            psnrs.append(-10.0 * torch.log10(torch.clamp(mse, min=1e-10)))
+        return torch.mean(torch.stack(psnrs))
+
+    # ---- update ----------------------------------------------------------
+
+    def train_step(self, batch: dict) -> dict:
+        """One optimizer update. Returns detached 0-dim tensors: 'loss',
+        the loss terms and 'dup_overflow' (reading them synchronises)."""
+        self.optimizer.zero_grad()
+        total, terms = self.loss_fn(batch)
+        total.backward()
+        self.optimizer.step()
+        self.step_count += 1
+        metrics = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in terms.items()}}
+        metrics["dup_overflow"] = self.last_dup_overflow
+        return metrics
+
+
+# ---- train-state checkpointing (render/checkpoint.py handles bare model
+# params; these add optimizer state + step for resume) ----------------------
+
+
+def save_train_state(path: str, trainer: Trainer):
+    """One ``torch.save`` of model, optimizer and step: tensors, numbers
+    and plain containers only, so it loads with ``weights_only=True``."""
+    torch.save({
+        "model": trainer.model.state_dict(),
+        "optimizer": trainer.optimizer.state_dict(),
+        "step": trainer.step_count,
+    }, path)
+
+
+def load_train_state(path: str, trainer: Trainer) -> int:
+    """Restore a snapshot into a freshly built ``trainer`` of the same
+    model config; returns the step."""
+    state = torch.load(path, map_location=trainer.device, weights_only=True)
+    trainer.model.load_state_dict(state["model"])
+    trainer.optimizer.load_state_dict(state["optimizer"])
+    trainer.step_count = int(state["step"])
+    return trainer.step_count
