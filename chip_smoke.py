@@ -8,10 +8,10 @@ Run from the repository root on a machine with one CUDA GPU:
 Phases, each printing what it found:
 
 1. device: torch / CUDA versions, the card's name and power limit;
-2. build: compiles ``gpcr_tpu_torch/csrc/stream_blend.cu`` and
-   ``stream_blend_bwd.cu`` with nvcc for sm_90a (both compilers started
-   together) into ``gpcr_tpu_torch/build/`` and prints ptxas' registers,
-   shared memory and spills for C = 3, 9 and 12;
+2. build: compiles ``gpcr_tpu_torch/csrc/stream_blend.cu``,
+   ``stream_blend_bwd.cu`` and ``aligned_blend.cu`` with nvcc for sm_90a
+   (all compilers started together) into ``gpcr_tpu_torch/build/`` and
+   prints ptxas' registers, shared memory and spills for C = 3, 9 and 12;
 3. kernel vs plain: on seeded ~20K-gaussian scenes (512² and 1024², 9 and
    12 channels) the CUDA blend kernel against its plain PyTorch version
    (downscale 1 and 2, all tiles and a covering tile budget; limits
@@ -19,7 +19,10 @@ Phases, each printing what it found:
    forward (same limits, counts equal) and the replay backward (per column
    max |diff| <= 1e-4 * max |plain| + 1e-6 and ||diff||_2 <= 1e-5 *
    ||plain||_2 + 1e-6, seeded non-uniform dL/dout and non-zero upstream
-   of T);
+   of T); then the aligned all-tiles kernel against its plain version
+   (acc and T, same limits) at C = 3, 9, 12 and chunk 64, 128, 256, on a
+   500² image (sides no multiple of 16), each also on an over-drawn scene
+   that takes the block's early exit;
 4. golden: the ``simple`` CLI task on tests/golden/pcd_0.ply renders the
    12 golden views through the kernel; each must reach 50 dB PSNR;
 5. learned slice (serving): the ``pcrender`` CLI task, PCEncoder at the
@@ -29,9 +32,23 @@ Phases, each printing what it found:
    launch counter is reset just before it and must grow. Then a small
    learned render on the card is held against the CPU path, and the
    kernel is timed against its plain version at this path's view-0 shape;
-6. gradients: one small scene through the differentiable rasterizer on the
+6. aligned route: ``render_views_fused(use_pallas=True)`` renders the 12
+   golden views (50 dB against the golden PNGs, and against the stream
+   route's float images of the same run) and view 0 of the learned cell's
+   splats (finite, against the stream route); its launch counter is reset
+   just before and must grow. The aligned kernel is then timed against
+   its plain version at the learned view-0 shape;
+7. scored run: a textured stretched-sphere mesh made from a seed is
+   written as OBJ and sampled to a ~800K-point cloud at scale factor 448;
+   the ``simple`` and ``pcrender`` CLI tasks (the latter at the deployed
+   width, seeded random weights) run WITHOUT ``--skip_mesh``: ray-traced
+   ground truth, 12 views 512² x2, PSNR / MS-SSIM scored (LPIPS reported
+   as skipped: its weights are not in the repository); ``--metric_only``
+   must give the same numbers, and the ``cam`` task a trajectory that
+   ``Camera.load`` reads back;
+8. gradients: one small scene through the differentiable rasterizer on the
    card against the CPU path;
-7. training slice: the ``train`` CLI at the deployed width on synthetic
+9. training slice: the ``train`` CLI at the deployed width on synthetic
    scenes (batch 1, 200K points, 2 views at 512², scale factor 448) takes
    4 steps, then resumes for a 5th; both training launch counters are
    reset just before and must grow; losses finite, parameters moved, no
@@ -39,7 +56,7 @@ Phases, each printing what it found:
    against their plain versions at this path's view-0 shape, and the
    rasterizer's forward + backward is timed at 800K analytic gaussians,
    1024², C = 3;
-8. one JSON line describing the three kernels, then the result line.
+10. one JSON line describing the four kernels, then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
@@ -49,6 +66,7 @@ result, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import json
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 import shutil
@@ -61,6 +79,14 @@ WORK = os.path.join(HERE, "gpcr_tpu_torch", "build", "smoke")
 TPU_KERNEL = "gpcr_tpu/ops/rasterize_stream.py:695"
 TPU_KERNEL_CONTRIB = "gpcr_tpu/ops/rasterize_stream_vjp.py:352"
 TPU_KERNEL_BWD = "gpcr_tpu/ops/rasterize_stream_vjp.py:442"
+TPU_KERNEL_ALIGNED = "gpcr_tpu/ops/rasterize_pallas.py:116"
+# the aligned route against the stream route, float images of one run: both
+# blend the same entries in the same order with the same float32 products;
+# the channel sums and the place of the 2x2 mean differ
+ROUTE_ERR = 1e-5
+# the scored ``simple`` run against its own mesh, dB (a dense cloud of
+# sigma-1 splats over a smooth texture)
+SIMPLE_PSNR_FLOOR = 18.0
 MAX_ERR, MEAN_ERR = 1e-4, 1e-6
 # replay backward vs plain, per gradient column: 1 / (1 - a) with a up to
 # 0.99 amplifies rounding along a range, and the two sum in another order
@@ -113,7 +139,7 @@ def phase_device(torch):
 def phase_build():
     from gpcr_tpu_torch.ops import cuda_build
 
-    names = ("stream_blend", "stream_blend_bwd")
+    names = ("stream_blend", "stream_blend_bwd", "aligned_blend")
     t0 = time.time()
     # one nvcc per source, started together (a thread each: the compiler
     # runs in a child process); a failed build raises out of result()
@@ -135,8 +161,9 @@ def phase_build():
                     log(f"[build] {name}: " + shown.strip())
 
 
-def _scene(torch, n, res, channels, seed, dev):
-    """Seeded scene of n gaussians filling a res x res view."""
+def _scene(torch, n, res, channels, seed, dev, overdraw=False):
+    """Seeded scene of n gaussians filling a res x res view; with
+    ``overdraw`` wide and nearly opaque ones, so that pixels end early."""
     from gpcr_tpu_torch.ops import rasterize as R
 
     g = torch.Generator().manual_seed(seed)
@@ -144,6 +171,8 @@ def _scene(torch, n, res, channels, seed, dev):
     scales = torch.rand(n, 3, generator=g) * 0.05 + 0.01
     rots = torch.randn(n, 4, generator=g)
     op = torch.rand(n, generator=g)
+    if overdraw:
+        scales, op = scales * 4.0, op * 0.1 + 0.9
     feats = torch.rand(n, channels, generator=g)
     P = torch.zeros(4, 4)
     P[0, 0] = P[1, 1] = 1.0
@@ -284,6 +313,58 @@ def phase_kernel_vs_plain(torch, dev):
     return worst, worst_a, worst_b
 
 
+def _compare_aligned(torch, prep, num_tiles, grid_x, channels, config):
+    """The aligned kernel against its plain version on one view's layout.
+    Returns (max, mean) abs diff over acc and T, the layout, and the share
+    of pixels that ended before their tile's last chunk."""
+    from gpcr_tpu_torch.ops import rasterize_aligned as RA
+
+    scal, feat, cstarts, _ = RA.tile_bin_aligned(prep, num_tiles, grid_x,
+                                                 config)
+    args = (cstarts, scal, feat, num_tiles, grid_x, channels, config)
+    acc, t = RA.blend_aligned_tiles(*args)
+    torch.cuda.synchronize()
+    acc_p, t_p = RA.blend_aligned_plain(*args)
+    torch.cuda.synchronize()
+    errs = [(a - b).abs() for a, b in ((acc, acc_p), (t, t_p))]
+    ended = float((t_p < 1e-3).float().mean())
+    return (max(float(e.max()) for e in errs),
+            max(float(e.mean()) for e in errs), args, ended)
+
+
+def phase_aligned_vs_plain(torch, dev):
+    """Returns the worst max |d| of the aligned kernel against plain."""
+    from gpcr_tpu_torch.ops import rasterize as R
+
+    res = 500  # not a multiple of 16: the last tile row and column overhang
+    grid_x = -(-res // 16)
+    worst = 0.0
+    for channels in (3, 9, 12):
+        for chunk in (64, 128, 256):
+            for overdraw in (False, True):
+                arrays, settings = _scene(
+                    torch, 20_000, res, channels, seed=channels + chunk,
+                    dev=dev, overdraw=overdraw)
+                means, scales, rots, op, feats = arrays
+                cfg = R.RasterizeConfig(
+                    max_dup_per_gaussian=64 if overdraw else 16,
+                    chunk_size=chunk, opacity_radius=True)
+                prep = R.preprocess(means, op, settings, cfg, scales=scales,
+                                    rotations=rots, colors_precomp=feats)
+                mx, mean, args, ended = _compare_aligned(
+                    torch, prep, grid_x * grid_x, grid_x, channels, cfg)
+                worst = max(worst, mx)
+                log(f"[kernel-aligned] {res}² C={channels} chunk={chunk} "
+                    f"overdraw={overdraw} chunks={args[1].shape[0]} pixels "
+                    f"ended early={ended:.3f} max|d|={mx:.3e} "
+                    f"mean|d|={mean:.3e}")
+                check(mx <= MAX_ERR and mean <= MEAN_ERR,
+                      f"aligned kernel disagrees with plain: {mx} / {mean}")
+                check(not overdraw or ended > 0.2,
+                      f"the over-drawn scene ended only {ended} of its pixels")
+    return worst
+
+
 def phase_golden(torch, B):
     import numpy as np
 
@@ -294,7 +375,14 @@ def phase_golden(torch, B):
         m = json.load(f)
     ds = os.path.join(WORK, "golden_ds", "scene")
     os.makedirs(ds, exist_ok=True)
-    shutil.copy(os.path.join(golden, "pcd_0.ply"), ds)
+    # the golden cloud has no normals, and for such a cloud the simple task
+    # first estimates them on the host (a brute-force kNN, minutes for 100K
+    # points) although it renders none: hand it the cloud with placeholders
+    from gpcr_tpu_torch.io import read_ply, write_ply
+
+    cloud = read_ply(os.path.join(golden, "pcd_0.ply"))
+    write_ply(os.path.join(ds, "pcd_0.ply"), cloud["xyz"], cloud["rgb"],
+              np.zeros_like(cloud["xyz"]))
     rpth = os.path.join(WORK, "golden_out") + "/"
     B.main([
         "simple", "--id_list", "scene",
@@ -408,18 +496,18 @@ def phase_learned_small(torch):
     return worst
 
 
-def _view0_stream(torch, ckpt):
-    """The learned path's view-0 blend inputs, built as the renderer
-    builds them (same splats, same settings, same config)."""
+def _learned_splats(torch, ckpt):
+    """The learned cell's splats and raster parameters, built as the
+    renderer builds them (same weights, cloud, cameras and config): a dict
+    of ``render_views_fused``'s arguments plus ``config``."""
     from gpcr_tpu_torch.cli import benchmark as B
-    from gpcr_tpu_torch.ops import rasterize as R
     from gpcr_tpu_torch.render import renderer as RD
     from gpcr_tpu_torch.structures.pointcloud import PointCloud
 
     args = B.build_parser().parse_args(["pcrender", "--skip_mesh",
                                         "--voxelized", "--dup_cap",
                                         str(DUP_CAP)])
-    config = B._raster_config(args)._replace(k_budget=None, downscale=2)
+    config = B._raster_config(args)._replace(k_budget=None)
     rdr = RD.PCMLRender(ckpt, voxelized=True, scale_factor=448, device="cuda")
     pcd = PointCloud.from_ply(os.path.join(WORK, "learned_ds", "0519",
                                            "pcd_0.ply"), device="cuda")
@@ -428,18 +516,58 @@ def _view0_stream(torch, ckpt):
         cam, _ = B._camera_for(args, "pcrender", torch.device("cuda"))
         bg3 = torch.ones(3, device="cuda")
         rp = RD.get_rasterize_param_from_camera(cam, 45, bg=bg3, sh_degree=1)
-        means = RD.pcgc_rescale(sp.primitives, 512, 448)
-        scales = sp.scale * float(3 ** 0.5 / 448 * 6)
-        feats, bg = RD.fuse_view_features(rp["campos"][0], means, sp.sh,
-                                          sp.normal, bg3, 1, True)
+    return dict(
+        rp=rp, config=config, bg3=bg3,
+        means=RD.pcgc_rescale(sp.primitives, 512, 448),
+        scales=sp.scale * float(3 ** 0.5 / 448 * 6), rotation=sp.rotation,
+        opacity=sp.opacity[:, 0], sh=sp.sh, normal=sp.normal, valid=sp.valid)
+
+
+def _render_fused(torch, sp, views, use_pallas, with_normal=True):
+    """``render_views_fused`` on the first ``views`` cameras of ``sp``
+    (a dict as ``_learned_splats`` returns), at 512² x2."""
+    from gpcr_tpu_torch.render import renderer as RD
+
+    rp = sp["rp"]
+    with torch.no_grad():
+        return RD.render_views_fused(
+            rp["view_t"][:views], rp["full_t"][:views], rp["campos"][:views],
+            sp["means"], sp["scales"], sp["rotation"], sp["opacity"],
+            sp["sh"], sp["normal"], sp["valid"], sp["bg3"], rp["tanfov"],
+            height=rp["height"], width=rp["width"], out_h=rp["height"] // 2,
+            out_w=rp["width"] // 2, sh_degree=rp["sh_degree"],
+            config=sp["config"], with_normal=with_normal,
+            use_pallas=use_pallas)
+
+
+def _view0_prep(torch, sp):
+    """The learned path's view-0 preprocessed splats (what both binnings
+    take): (prep, channels, raster size)."""
+    from gpcr_tpu_torch.ops import rasterize as R
+    from gpcr_tpu_torch.render import renderer as RD
+
+    rp = sp["rp"]
+    with torch.no_grad():
+        feats, bg = RD.fuse_view_features(
+            rp["campos"][0], sp["means"], sp["sh"], sp["normal"], sp["bg3"], 1,
+            True)
         settings = R.GaussianRasterizationSettings(
             rp["height"], rp["width"], rp["tanfov"], rp["tanfov"], bg, 1.0,
             rp["view_t"][0], rp["full_t"][0], 1, rp["campos"][0])
-        prep = R.preprocess(means, sp.opacity[:, 0], settings, config,
-                            scales=scales, rotations=sp.rotation,
+        prep = R.preprocess(sp["means"], sp["opacity"], settings, sp["config"],
+                            scales=sp["scales"], rotations=sp["rotation"],
                             colors_precomp=feats)
-        stream, starts, order, nt, gx = _bin(torch, prep, rp["height"], config)
-    return stream, starts, order, nt, gx, feats.shape[1], config
+    return prep, feats.shape[1], rp["height"]
+
+
+def _view0_stream(torch, sp):
+    """The learned path's view-0 stream blend inputs (downscale 2, as the
+    renderer sets it)."""
+    config = sp["config"]._replace(downscale=2)
+    prep, channels, res = _view0_prep(torch, sp)
+    with torch.no_grad():
+        stream, starts, order, nt, gx = _bin(torch, prep, res, config)
+    return stream, starts, order, nt, gx, channels, config
 
 
 def _event_ms(torch, fn, reps):
@@ -506,10 +634,12 @@ def _pairs(torch, stream, starts, order, nt, gx, channels, config):
     return int(cnt.sum()), int(live.sum())
 
 
-def phase_timing(torch, ckpt):
+def phase_timing(torch, sp):
+    """Kernel 1 at the learned view-0 shape; also returns the (walked,
+    live) pair counts of that stream and its number of entries."""
     from gpcr_tpu_torch.ops import rasterize_stream as RS
 
-    stream, starts, order, nt, gx, channels, config = _view0_stream(torch, ckpt)
+    stream, starts, order, nt, gx, channels, config = _view0_stream(torch, sp)
     pairs = _pairs(torch, stream, starts, order, nt, gx, channels, config)
     bound_ms, bound_by = _fwd_bound(
         pairs, stream.shape[0], stream.shape[1], channels,
@@ -531,7 +661,275 @@ def phase_timing(torch, ckpt):
         f"max|d|={mx:.3e} mean|d|={mean:.3e}; {pairs[0]} (entry, pixel) "
         f"pairs walked, {pairs[1]} of them live, bound {bound_ms:.4f} ms by {bound_by}")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=mx, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by), pairs, stream.shape[0]
+
+
+# --------------------------------------------------------------------------
+# the aligned route (kernel 4)
+# --------------------------------------------------------------------------
+
+
+def _psnr_u8(img01, ref_u8):
+    """PSNR in dB of a float image (a tensor), cast to uint8 as
+    ``save_pic`` casts it, against a uint8 reference (an array)."""
+    import numpy as np
+
+    from gpcr_tpu_torch.io import to_uint8
+
+    got = to_uint8(img01.cpu().numpy()).astype(np.float64)
+    mse = np.mean((got - ref_u8.astype(np.float64)) ** 2)
+    return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def phase_aligned_route(torch, B, RA, sp):
+    """``render_views_fused(use_pallas=True)`` on the golden cloud (12
+    views) and on the learned cell's splats (view 0), each against the
+    stream route of the same run. Returns the aligned kernel's launches."""
+    from gpcr_tpu_torch.io import read_png
+    from gpcr_tpu_torch.render import renderer as RD
+    from gpcr_tpu_torch.structures.pointcloud import PointCloud
+    from gpcr_tpu_torch.utils import sh as sh_utils
+
+    golden = os.path.join(HERE, "tests", "golden")
+    with open(os.path.join(golden, "manifest.json")) as f:
+        m = json.load(f)
+    dev = torch.device("cuda")
+    args = B.build_parser().parse_args(["simple", "--skip_mesh", "--voxelized"])
+    cam, _ = B._camera_for(args, "simple", dev)
+    pcd = PointCloud.from_ply(os.path.join(golden, "pcd_0.ply"), device=dev)
+    n = pcd.get_num_points()
+    # the analytic splats of SimpleRender: identity rotations, isotropic
+    # sigma / scale_factor scales, opacity 1, SH DC from the colours
+    bg3 = torch.full((3,), float(m["bg"]), device=dev)
+    simple = dict(
+        rp=RD.get_rasterize_param_from_camera(cam, m["fov"], bg=bg3,
+                                              sh_degree=1),
+        config=B._raster_config(args)._replace(k_budget=None), bg3=bg3,
+        means=RD.pcgc_rescale(pcd.xyz_w[0], 512, m["scale_factor"]),
+        scales=torch.full((n, 3), m["sigma"] / m["scale_factor"], device=dev),
+        rotation=torch.tensor([1.0, 0, 0, 0], device=dev).expand(n, 4),
+        opacity=torch.ones(n, device=dev),
+        sh=torch.cat([sh_utils.RGB2SH(pcd.rgb[0])[:, None, :],
+                      torch.zeros((n, 12, 3), device=dev)], dim=1),
+        normal=torch.zeros((n, 3), device=dev),
+        valid=torch.ones(n, dtype=torch.bool, device=dev))
+
+    RA.LAUNCHES = 0
+    t0 = time.time()
+    got = _render_fused(torch, simple, 12, True, with_normal=False)
+    torch.cuda.synchronize()
+    t_aligned = time.time() - t0
+    learned = _render_fused(torch, sp, 1, True)
+    torch.cuda.synchronize()
+    launches = RA.LAUNCHES
+
+    t0 = time.time()
+    ref = _render_fused(torch, simple, 12, False, with_normal=False)
+    torch.cuda.synchronize()
+    t_stream = time.time() - t0
+    psnrs = []
+    for i in range(m["n_views"]):
+        png = read_png(os.path.join(golden, f"rgb_{i}.png"))
+        psnrs.append(_psnr_u8(got["rgb"][i], png))
+    d_golden = max(float((got[k] - ref[k]).abs().max())
+                   for k in ("rgb", "xyz_w", "hitmap"))
+    log("[aligned-route] golden PSNR dB per view: "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+    log(f"[aligned-route] golden, 12 views 512² x2, C=9: aligned vs stream "
+        f"route max|d|={d_golden:.3e} (limit {ROUTE_ERR:g}); first pass on "
+        f"the host clock {t_aligned:.3f} s aligned, {t_stream:.3f} s stream")
+    check(len(psnrs) == 12 and min(psnrs) >= 50.0,
+          f"aligned route below 50 dB on the golden views: {min(psnrs)}")
+    check(d_golden <= ROUTE_ERR, f"aligned route is {d_golden} off the stream "
+          "route on the golden cloud")
+    check(int(got["dup_overflow"].sum()) == 0, "the aligned route reports "
+          "overflow (it drops the count)")
+
+    ref = _render_fused(torch, sp, 1, False)
+    torch.cuda.synchronize()
+    keys = ("rgb", "xyz_w", "hitmap", "normal")
+    for k in keys:
+        check(tuple(learned[k].shape) == (1, 512, 512, 3),
+              f"aligned {k} has shape {tuple(learned[k].shape)}")
+        check(bool(torch.isfinite(learned[k]).all()),
+              f"aligned {k} is not finite")
+    d_learned = max(float((learned[k] - ref[k]).abs().max()) for k in keys)
+    coverage = float(((learned["rgb"] - 1.0).abs() > 1e-3).any(-1).float().mean())
+    log(f"[aligned-route] learned view 0, 512² x2, C=12: aligned vs stream "
+        f"route max|d|={d_learned:.3e} (limit {ROUTE_ERR:g}), coverage "
+        f"{coverage:.4f}; kernel launches {launches}")
+    check(d_learned <= ROUTE_ERR and coverage > 0,
+          f"aligned route is {d_learned} off the stream route on the learned "
+          f"splats (coverage {coverage})")
+    check(launches == 13, f"the aligned route launched its kernel {launches} "
+          "times, expected 13 (12 golden views + 1 learned)")
+    return launches
+
+
+def phase_timing_aligned(torch, sp, pairs, entries):
+    """Kernel 4 at the learned view-0 shape (the same entries as kernel 1's
+    timing, full-size output), in turns plain / kernel / kernel / plain.
+    ``pairs`` are kernel 1's (walked, live) counts on these ``entries``:
+    the walk is the same, and padding slots are no work the data needs."""
+    from gpcr_tpu_torch.ops import rasterize_aligned as RA
+
+    prep, channels, res = _view0_prep(torch, sp)
+    config = sp["config"]
+    gx = -(-res // 16)
+    nt = gx * gx
+    mx, mean, args, _ = _compare_aligned(torch, prep, nt, gx, channels, config)
+    check(mx <= MAX_ERR and mean <= MEAN_ERR, "aligned kernel disagrees with "
+          f"plain at the learned view-0 shape: {mx} / {mean}")
+    cstarts, scal, feat = args[:3]
+    slots = scal.shape[0] * scal.shape[2]
+    # bytes as the layout holds them: every slot's 6 + C floats and the
+    # chunk starts read once, acc and T of every tile written once
+    nbytes = (scal.numel() + feat.numel() + cstarts.numel()
+              + nt * 256 * (channels + 1)) * 4
+    ops = pairs[0] * 16 + pairs[1] * (4 + 2 * channels)
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    p1 = _event_ms(torch, lambda: RA.blend_aligned_plain(*args), 3)
+    k1 = _event_ms(torch, lambda: RA.blend_aligned_tiles(*args), 20)
+    k2 = _event_ms(torch, lambda: RA.blend_aligned_tiles(*args), 20)
+    p2 = _event_ms(torch, lambda: RA.blend_aligned_plain(*args), 3)
+    bin_ms = _event_ms(
+        torch, lambda: RA.tile_bin_aligned(prep, nt, gx, config), 3)
+    log(f"[timing-aligned] view-0 aligned blend at {res}², C={channels}, "
+        f"chunk {config.chunk_size}: {slots} slots in {scal.shape[0]} chunks "
+        f"({slots - entries} of them padding), "
+        f"{int((cstarts[1:] > cstarts[:-1]).sum())} of {nt} tiles non-empty: "
+        f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (CUDA "
+        f"events); max|d|={mx:.3e} mean|d|={mean:.3e}; bound {bound_ms:.4f} ms "
+        f"by {bound_by} ({nbytes} bytes, {ops} operations); the layout's "
+        f"binning (tile_bin_aligned) {bin_ms:.2f} ms")
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), max_abs_err=mx,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# --------------------------------------------------------------------------
+# the scored benchmark run
+# --------------------------------------------------------------------------
+
+
+def _write_sphere_dataset(root, asset_id, n_samples, seed):
+    """A textured stretched sphere (the learned cell's shape) as
+    ``<root>/<id>/<id>.obj`` with material and texture, and its cloud
+    ``pcd_0.ply`` sampled on the scale-factor-448 grid, normals included.
+    Returns the number of points."""
+    import numpy as np
+
+    from gpcr_tpu_torch.io import write_ply, write_png
+    from gpcr_tpu_torch.structures.mesh import Mesh
+
+    d = os.path.join(root, asset_id)
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    # a smooth texture: a few random low-frequency waves per channel
+    yy, xx = np.mgrid[0:256, 0:256] / 256.0
+    tex = np.zeros((256, 256, 3))
+    for c in range(3):
+        for _ in range(4):
+            fx, fy = rng.randint(1, 5, 2)
+            tex[..., c] += np.sin(2 * np.pi * (fx * xx + fy * yy) + rng.rand() * 6)
+    tex = (tex - tex.min()) / (tex.max() - tex.min())
+    write_png(os.path.join(d, "tex.png"), (tex * 255).astype(np.uint8))
+    with open(os.path.join(d, "mat.mtl"), "w") as f:
+        f.write("newmtl m0\nKd 1 1 1\nmap_Kd tex.png\n")
+    nu, nv = 256, 128  # longitude x latitude quads; the poles stay open
+    u = np.linspace(0, 2 * np.pi, nu + 1)
+    v = np.linspace(0.02 * np.pi, 0.98 * np.pi, nv + 1)
+    uu, vv = np.meshgrid(u, v)  # (nv + 1, nu + 1)
+    xyz = np.stack([np.sin(vv) * np.cos(uu), 1.6 * np.cos(vv),
+                    np.sin(vv) * np.sin(uu)], -1).reshape(-1, 3)
+    uv = np.stack([uu / (2 * np.pi), vv / np.pi], -1).reshape(-1, 2)
+    i, j = np.meshgrid(np.arange(nv), np.arange(nu), indexing="ij")
+    a = (i * (nu + 1) + j + 1).reshape(-1)  # OBJ indices start at 1
+    quads = np.stack([a, a + 1, a + nu + 2, a + nu + 1], -1)
+    with open(os.path.join(d, f"{asset_id}.obj"), "w") as f:
+        f.write("mtllib mat.mtl\n")
+        f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in xyz)
+        f.writelines(f"vt {s:.6f} {t:.6f}\n" for s, t in uv)
+        f.write("usemtl m0\n")
+        f.writelines(f"f {p}/{p} {q}/{q} {r}/{r} {w}/{w}\n"
+                     for p, q, r, w in quads)
+    pcd = Mesh(os.path.join(d, f"{asset_id}.obj"), scale=1.0).sample_point_cloud(
+        n_samples, method="uniform_quantized", seed=seed, quantize_scale=448.0)
+    write_ply(os.path.join(d, "pcd_0.ply"), pcd.xyz_w[0].numpy(),
+              pcd.rgb[0].numpy(), pcd.normal_w[0].numpy())
+    return pcd.get_num_points()
+
+
+def phase_scored(torch, B, RS, ckpt):
+    """The scored benchmark entry point: ``simple`` and ``pcrender`` without
+    ``--skip_mesh``, then ``--metric_only``, then the ``cam`` task."""
+    from gpcr_tpu_torch.structures.camera import Camera
+
+    root = os.path.join(WORK, "scored_ds")
+    t0 = time.time()
+    n_points = _write_sphere_dataset(root, "0001", 1_300_000, seed=0)
+    log(f"[scored] dataset: stretched-sphere OBJ (65,536 triangles, 256² "
+        f"texture) and a {n_points}-point cloud at scale factor 448, made in "
+        f"{time.time() - t0:.1f} s")
+    check(600_000 <= n_points <= 1_100_000,
+          f"the sampled cloud has {n_points} points, meant ~800K")
+    rpth = os.path.join(WORK, "scored_out") + "/"
+    common = ["--id_list", "0001", "--dataset_root", root, "--rpth", rpth,
+              "--voxelized", "--scale_factor", "448", "--fov", "45",
+              "--background_color", "1", "--device", "cuda"]
+    tasks = {"simple": ["simple", *common],
+             "pcrender": ["pcrender", "--ckpt", ckpt, "--dup_cap",
+                          str(DUP_CAP), *common]}
+    gt_dir = rpth + "0001_mesh_gt"
+    scores = {}
+    for task, argv in tasks.items():
+        RS.LAUNCHES = 0
+        t0 = time.time()
+        out, timing = B.main(argv)["0001"]
+        total = time.time() - t0
+        launches = RS.LAUNCHES
+        s = scores[task] = timing["scores"]
+        render_s = total - timing["gt_time"] - timing["score_time"]
+        log(f"[scored] {task}: PSNR {s['psnr']:.4f} dB, MS-SSIM "
+            f"{s['msssim']:.6f}, LPIPS {s['lpips']} (skipped: no weights in "
+            f"the repository); ground truth {timing['gt_time']:.2f} s, render "
+            f"{render_s:.2f} s (cloud read, model {timing['model_time']:.4f} "
+            f"s, rgb {timing['rgb_time']:.4f} s, PNGs written), scoring "
+            f"{timing['score_time']:.2f} s; dup_overflow "
+            f"{timing['dup_overflow']}; blend kernel launches {launches}")
+        check(tuple(out["rgb"].shape) == (1, 12, 512, 512, 3),
+              f"{task} rgb has shape {tuple(out['rgb'].shape)}")
+        check(all(os.path.exists(os.path.join(gt_dir, f"{kind}_{i}.png"))
+                  for kind in ("rgb", "normal_w") for i in range(12)),
+              f"{task} wrote no ground-truth PNGs")
+        check(math.isfinite(s["psnr"]) and math.isfinite(s["msssim"])
+              and 0.0 <= s["msssim"] <= 1.0, f"{task} scores: {s}")
+        check(s["lpips"] is None, "LPIPS scored without weights")
+        check(launches == 24 and timing["dup_overflow"] == 0,
+              f"{task}: {launches} blend launches (expected 24: 12 views, "
+              f"warm + timed), dup_overflow {timing['dup_overflow']}")
+    check(scores["simple"]["psnr"] >= SIMPLE_PSNR_FLOOR,
+          f"simple scores {scores['simple']['psnr']} dB against its own mesh, "
+          f"below {SIMPLE_PSNR_FLOOR}")
+    for task, argv in tasks.items():
+        t0 = time.time()
+        out, timing = B.main([*argv, "--metric_only"])["0001"]
+        check(out is None and timing["scores"] == scores[task],
+              f"{task} --metric_only gives {timing['scores']}, the run gave "
+              f"{scores[task]}")
+        log(f"[scored] {task} --metric_only: the same numbers, "
+            f"{time.time() - t0:.2f} s")
+    cam_path = os.path.join(WORK, "scored_out", "cam", "cam.npz")
+    saved = B.main(["cam", "--cam_mode", "udlrfb", "--cam_save_path", cam_path,
+                    "--device", "cuda"])
+    back = Camera.load(cam_path)
+    check(tuple(back.H_c2w.shape) == (1, 6, 4, 4) and back.width_px == 512
+          and bool(torch.equal(back.H_c2w, saved.H_c2w.cpu())),
+          "the cam task's file does not read back")
+    log(f"[scored] cam task: udlrfb trajectory {tuple(back.H_c2w.shape)} saved "
+        "and read back")
+    return scores
 
 
 # --------------------------------------------------------------------------
@@ -843,6 +1241,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from gpcr_tpu_torch.cli import benchmark as B
+    from gpcr_tpu_torch.ops import rasterize_aligned as RA
     from gpcr_tpu_torch.ops import rasterize_stream as RS
     from gpcr_tpu_torch.ops import rasterize_stream_vjp as RV
     from gpcr_tpu_torch.render.renderer import pin_fp32
@@ -853,18 +1252,33 @@ def main() -> int:
     os.makedirs(WORK)
     try:
         t0 = time.time()
+
+        def run(phase, *args):
+            """One phase, with its seconds on the host clock."""
+            t1 = time.time()
+            out = phase(*args)
+            torch.cuda.synchronize()
+            log(f"[time] {phase.__name__}: {time.time() - t1:.1f} s")
+            return out
+
         card = phase_device(torch)
-        phase_build()
-        worst, worst_a, worst_b = phase_kernel_vs_plain(torch, dev)
-        phase_golden(torch, B)
-        launches, timing, peak, ckpt = phase_learned(torch, B, RS)
-        phase_learned_small(torch)
-        serve = phase_timing(torch, ckpt)
-        phase_grad_small(torch)
-        train = phase_train(torch, RS, RV)
-        phase_train_stages(torch, train["trainer"])
-        k_contrib, k_bwd = phase_timing_train(torch, train["trainer"])
-        phase_timing_raster(torch)
+        run(phase_build)
+        worst, worst_a, worst_b = run(phase_kernel_vs_plain, torch, dev)
+        worst_c = run(phase_aligned_vs_plain, torch, dev)
+        run(phase_golden, torch, B)
+        launches, timing, peak, ckpt = run(phase_learned, torch, B, RS)
+        run(phase_learned_small, torch)
+        splats = _learned_splats(torch, ckpt)
+        serve, pairs, entries = run(phase_timing, torch, splats)
+        aligned_launches = run(phase_aligned_route, torch, B, RA, splats)
+        aligned = run(phase_timing_aligned, torch, splats, pairs, entries)
+        del splats
+        run(phase_scored, torch, B, RS, ckpt)
+        run(phase_grad_small, torch)
+        train = run(phase_train, torch, RS, RV)
+        run(phase_train_stages, torch, train["trainer"])
+        k_contrib, k_bwd = run(phase_timing_train, torch, train["trainer"])
+        run(phase_timing_raster, torch)
         # the port imports nothing of the JAX package
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "gpcr_tpu"))
@@ -877,11 +1291,12 @@ def main() -> int:
     # at its main path's view-0 shape; the seeded scenes' comparisons were
     # held to their limits above and are in the log
     log(f"[kernel] worst max|d| on the seeded scenes: blend {worst:.3e}, "
-        f"count forward {worst_a:.3e}, replay backward {worst_b:.3e} "
+        f"aligned blend {worst_c:.3e}, count forward {worst_a:.3e}, replay "
+        f"backward {worst_b:.3e} "
         f"(absolute, on gradients up to thousands; limits per column "
         f"{BWD_REL:g} * max|plain| + {BWD_ABS:g} and ||d||_2 <= "
         f"{BWD_L2_REL:g} * ||plain||_2 + {BWD_ABS:g})")
-    # no single PyTorch call computes any of the three (a sorted,
+    # no single PyTorch call computes any of the four (a sorted,
     # early-terminating alpha blend and its replay), so library_ms is null
     log(json.dumps({"kernels": [
         {"name": "stream_blend", "route": "cuda",
@@ -896,6 +1311,10 @@ def main() -> int:
          "source": "gpcr_tpu_torch/csrc/stream_blend_bwd.cu",
          "replaces": TPU_KERNEL_BWD, "launches": train["launches"][1],
          **k_bwd, "library_ms": None},
+        {"name": "aligned_blend", "route": "cuda",
+         "source": "gpcr_tpu_torch/csrc/aligned_blend.cu",
+         "replaces": TPU_KERNEL_ALIGNED, "launches": aligned_launches,
+         **aligned, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

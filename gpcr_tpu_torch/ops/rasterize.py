@@ -183,6 +183,76 @@ def entry_count(prep: Preprocessed, config: RasterizeConfig) -> torch.Tensor:
     return torch.sum(torch.where(prep.valid, area, torch.zeros_like(area)))
 
 
+def emit_tiles(rect, valid, cap: int, grid_x: int):
+    """Duplicate each valid gaussian over the first min(area, cap) tiles of
+    its rect, row-major (duplicateWithKeys, rasterizer_impl.cu:70-111).
+
+    ``rect`` (n, 4) and ``valid`` (n,) come in the order the caller wants
+    the entries emitted in (gaussian-major). Returns (gaussian (E,) i64:
+    the row of ``rect`` each entry came from, tile (E,) i64, overflow ()
+    i64: the tiles beyond ``cap``, never emitted). Only live entries are
+    emitted: dynamic shapes need no sentinel padding.
+    """
+    n = rect.shape[0]
+    dev = rect.device
+    rminx, rminy, rmaxx, rmaxy = rect.long().unbind(-1)
+    rw = torch.clamp(rmaxx - rminx, min=1)
+    area_raw = (rmaxx - rminx) * (rmaxy - rminy)
+    zero = torch.zeros_like(area_raw)
+    area = torch.where(valid, torch.clamp(area_raw, max=cap), zero)
+    overflow = torch.sum(
+        torch.where(valid, torch.clamp(area_raw - cap, min=0), zero))
+    total = int(area.sum())
+    gaussian = torch.repeat_interleave(
+        torch.arange(n, device=dev), area, output_size=total)
+    first = torch.cumsum(area, 0) - area
+    k = torch.arange(total, device=dev) - first[gaussian]
+    rw_e = rw[gaussian]
+    tile = (rminy[gaussian] + k // rw_e) * grid_x + rminx[gaussian] + k % rw_e
+    return gaussian, tile, overflow
+
+
+def tile_bin(prep: Preprocessed, num_tiles: int, grid_x: int,
+             config: RasterizeConfig):
+    """Duplicate each gaussian into its tile rect and sort the entries by
+    (tile, depth) (port of ``gpcr_tpu/ops/rasterize.py::tile_bin``,
+    :232-328, without ``tile_window``).
+
+    The sort is stable as ``lax.sort(num_keys=2)`` is: entries of one tile
+    with equal depths keep emit order (gaussian-major). A tile holds a
+    gaussian at most once, so the rank of a gaussian in a stable sort of
+    the depths stands for (depth, emit order), and one sort of the unique
+    int64 key tile * (n + 1) + rank gives that order.
+
+    A positive ``config.k_budget`` keeps the first ``k_budget`` entries in
+    EMIT order, before the sort, and counts the rest as overflow (the
+    stream path's ``bin_sorted_stream`` cuts the SORTED list instead).
+
+    Returns (sorted_gidx (E,) i64 gaussian index per sorted entry, starts
+    (num_tiles + 1,) i32, overflow () i64). The JAX function pads
+    ``sorted_gidx`` to a static size with sentinels; here E is the number
+    of kept entries.
+    """
+    n = prep.depth.shape[0]
+    dev = prep.depth.device
+    gaussian, tile, overflow = emit_tiles(
+        prep.rect, prep.valid, config.max_dup_per_gaussian, grid_x)
+    kb = config.k_budget
+    if kb is not None and kb > 0:
+        overflow = overflow + max(gaussian.numel() - kb, 0)
+        gaussian, tile = gaussian[:kb], tile[:kb]
+    _, by_depth = torch.sort(prep.depth, stable=True)
+    rank = torch.empty_like(by_depth)
+    rank[by_depth] = torch.arange(n, device=dev)
+    key_s, _ = torch.sort(tile * (n + 1) + rank[gaussian])
+    sorted_tile = key_s // (n + 1)
+    sorted_gidx = by_depth[key_s - sorted_tile * (n + 1)]
+    starts = torch.searchsorted(
+        sorted_tile, torch.arange(num_tiles + 1, device=dev),
+        side="left").to(torch.int32)
+    return sorted_gidx, starts, overflow
+
+
 def rasterize_gaussians(
     means3d,
     opacities,

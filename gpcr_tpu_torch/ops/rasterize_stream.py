@@ -79,24 +79,11 @@ def bin_sorted_stream(
     depth_key = torch.where(
         prep.valid, prep.depth, torch.full_like(prep.depth, float("inf")))
     _, gidx_s = torch.sort(depth_key, stable=True)
-    rect_s = prep.rect[gidx_s].long()
-    valid_s = prep.valid[gidx_s]
-    rminx, rminy, rmaxx, rmaxy = rect_s.unbind(-1)
 
     # 2. rank emit
-    rw = torch.clamp(rmaxx - rminx, min=1)
-    area_raw = (rmaxx - rminx) * (rmaxy - rminy)
-    zero = torch.zeros_like(area_raw)
-    area = torch.where(valid_s, torch.clamp(area_raw, max=cap), zero)
-    overflow = torch.sum(
-        torch.where(valid_s, torch.clamp(area_raw - cap, min=0), zero))
-    total = int(area.sum())
-    rank = torch.repeat_interleave(
-        torch.arange(n, device=dev), area, output_size=total)
-    first = torch.cumsum(area, 0) - area
-    k = torch.arange(total, device=dev) - first[rank]
-    rw_e = rw[rank]
-    tile = (rminy[rank] + k // rw_e) * grid_x + rminx[rank] + k % rw_e
+    rank, tile, overflow = R.emit_tiles(
+        prep.rect[gidx_s], prep.valid[gidx_s], cap, grid_x)
+    total = rank.numel()
 
     # 3. the (tile, rank) sort on one unique int64 key
     key_s, _ = torch.sort(tile * (n + 1) + rank)

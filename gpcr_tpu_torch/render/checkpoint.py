@@ -107,3 +107,13 @@ def grads_to_jax_tree(module: nn.Module) -> dict:
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         flat[k] = g.detach().cpu().numpy()
     return _nest(flat)
+
+
+def lpips_from_jax_params(params: dict):
+    """A ``metrics.lpips.LPIPS`` holding the JAX package's ``LPIPS.params``
+    (its nested dict, handed over as numpy arrays: 'conv{i}' -> 'kernel' /
+    'bias', 'lin{i}'), so that both packages score with the same weights."""
+    from ..metrics.lpips import LPIPS
+
+    return LPIPS(_nest({k: np.asarray(v, np.float32)
+                        for k, v in _flatten(params).items()}))

@@ -94,10 +94,19 @@ def pcgc_rescale(input_xyz, offset=512, factor=256):
 
 
 def generate_cam(camera_info: dict, return_traj: bool = False, device=None):
-    """Camera factory (circle trajectories)."""
+    """Camera factory: ``camera_info["mode"]`` is 'circle', 'udlrfb' (which
+    takes its radius range from the reference's defaults) or the path of a
+    camera file."""
+    defaults = {
+        "min_r": 3, "max_r": 4, "max_angle": 30.0, "num_circle": 4,
+        "r_freq": 1, "max_translate_ratio": 2.0, "local_max_angle": 3.0,
+        "rand_r": 0.0,
+    }
     traj = CameraTrajectory(
         mode=camera_info["mode"], n_imgs=camera_info["n_imgs"], total=1,
-        rng_seed=0, params=camera_info, device=device,
+        rng_seed=0,
+        params=camera_info if camera_info["mode"] != "udlrfb" else defaults,
+        device=device,
     )
     cam = traj.get_camera(fov=camera_info["fov"],
                           width_px=camera_info["width_px"],
@@ -164,11 +173,14 @@ def _render_one_view(
     view_t, full_t, campos,
     means3d, scales, rotations, opacity, shs, normal, valid,
     bg3, tanfov, height, width, sh_degree, config: R.RasterizeConfig,
-    with_normal: bool,
+    with_normal: bool, use_pallas: bool = False,
 ):
     """Render one view with all output channels fused into one pass
-    (the training path: gradients flow when ``config.differentiable``).
-    Returns (color (C, height, width), dup_overflow)."""
+    (gradients flow when ``config.differentiable``). ``use_pallas`` (the
+    JAX package's name for it) takes the aligned all-tiles blend of
+    ``ops/rasterize_aligned.py``: forward only, always at (height, width),
+    and its dropped entries are not counted. Returns (color (C, h, w),
+    dup_overflow)."""
     features, bg = fuse_view_features(
         campos, means3d, shs, normal, bg3, sh_degree, with_normal)
     settings = R.GaussianRasterizationSettings(
@@ -176,6 +188,14 @@ def _render_one_view(
         tanfovy=tanfov, bg=bg, scale_modifier=1.0, viewmatrix=view_t,
         projmatrix=full_t, sh_degree=sh_degree, campos=campos,
     )
+    if use_pallas:
+        from . import _get_pallas_raster
+
+        color, _ = _get_pallas_raster()(
+            means3d, opacity, settings, scales=scales, rotations=rotations,
+            colors_precomp=features, valid_mask=valid, config=config,
+        )
+        return color, torch.zeros((), dtype=torch.long, device=color.device)
     color, _, extra = R.rasterize_gaussians(
         means3d, opacity, settings, scales=scales, rotations=rotations,
         colors_precomp=features, valid_mask=valid, config=config,
@@ -189,32 +209,26 @@ def render_views_fused(
     means3d, scales, rotations, opacity, shs, normal, valid,
     bg3, tanfov,
     height: int, width: int, out_h: int, out_w: int, sh_degree: int,
-    config: R.RasterizeConfig, with_normal: bool,
+    config: R.RasterizeConfig, with_normal: bool, use_pallas: bool = False,
 ) -> dict:
     """All views of one cloud, one fused rasterizer pass per view.
     Returns a dict of (q, out_h, out_w, 3) images plus per-view
     ``dup_overflow`` (q,)."""
     pin_fp32()
-    if (config.downscale == 1 and height == 2 * out_h and width == 2 * out_w
+    if (not use_pallas and config.downscale == 1
+            and height == 2 * out_h and width == 2 * out_w
             and config.tile_x % 2 == 0 and config.tile_y % 2 == 0):
-        # fold the x2-supersampling downscale into the blend's tile write
+        # fold the x2-supersampling downscale into the stream blend's tile
+        # write; the aligned route renders at full size and is resized below
         config = config._replace(downscale=2)
     colors, overflow = [], []
     for vt, ft, cp in zip(view_ts, full_ts, camposes):
-        features, bg = fuse_view_features(
-            cp, means3d, shs, normal, bg3, sh_degree, with_normal)
-        settings = R.GaussianRasterizationSettings(
-            image_height=height, image_width=width, tanfovx=tanfov,
-            tanfovy=tanfov, bg=bg, scale_modifier=1.0, viewmatrix=vt,
-            projmatrix=ft, sh_degree=sh_degree, campos=cp,
-        )
-        color, _, extra = R.rasterize_gaussians(
-            means3d, opacity, settings, scales=scales, rotations=rotations,
-            colors_precomp=features, valid_mask=valid, config=config,
-            return_extra=True,
-        )
+        color, ovf = _render_one_view(
+            vt, ft, cp, means3d, scales, rotations, opacity, shs, normal,
+            valid, bg3, tanfov, height, width, sh_degree, config, with_normal,
+            use_pallas)
         colors.append(color)
-        overflow.append(extra["dup_overflow"])
+        overflow.append(ovf)
     colors = bilinear_resize(torch.stack(colors), out_h, out_w)
     out = {
         "rgb": colors[:, 0:3].permute(0, 2, 3, 1),

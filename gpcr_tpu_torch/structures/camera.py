@@ -1,5 +1,6 @@
-"""Batched pinhole cameras (port of the render- and training-path part
-of ``gpcr_tpu/structures/camera.py``).
+"""Batched pinhole cameras (port of ``gpcr_tpu/structures/camera.py``
+without its debug frame meshes, ``chunk`` / ``split`` and
+``index_select``).
 
 ``H_c2w`` is (b, q, 4, 4) camera-to-world with image y pointing down;
 ``intrinsic`` is (b, q, 3, 3) with f = 0.5 * width / tan(fov/2). Rays
@@ -10,6 +11,8 @@ leave pixel centers: uv + 0.5, direction = H_c2w[:3,:3] @ inv(K) @
 from __future__ import annotations
 
 import dataclasses
+import json
+import typing as T
 
 import numpy as np
 import torch
@@ -97,3 +100,75 @@ class Camera:
         return dataclasses.replace(
             self, H_c2w=self.H_c2w.to(device),
             intrinsic=self.intrinsic.to(device))
+
+    @staticmethod
+    def cat(cameras: T.Sequence["Camera"], dim: int) -> "Camera":
+        assert len({c.width_px for c in cameras}) == 1
+        assert len({c.height_px for c in cameras}) == 1
+        return dataclasses.replace(
+            cameras[0],
+            H_c2w=torch.cat([c.H_c2w for c in cameras], dim=dim),
+            intrinsic=torch.cat([c.intrinsic for c in cameras], dim=dim))
+
+    def uniformly_sample(self, num_samples: int) -> "Camera":
+        """Geodesically resample the (b, q) trajectory to q = num_samples."""
+        from ..utils.rigid_motion import interp_homogeneous
+
+        q = self.H_c2w.shape[1]
+        if q == 1:
+            return dataclasses.replace(
+                self,
+                H_c2w=self.H_c2w.repeat_interleave(num_samples, dim=1),
+                intrinsic=self.intrinsic[:, :1].repeat_interleave(
+                    num_samples, dim=1))
+        t = torch.linspace(0.0, q - 1.0, num_samples, device=self.device)
+        i0 = torch.clamp(torch.floor(t).long(), 0, q - 2)
+        H = interp_homogeneous(self.H_c2w[:, i0], self.H_c2w[:, i0 + 1],
+                               (t - i0)[None, :])
+        return dataclasses.replace(self, H_c2w=H,
+                                   intrinsic=self.intrinsic[:, i0])
+
+    # ---- persistence: the JAX package's files, read and written alike ----
+
+    def state_dict(self) -> dict:
+        return {
+            "H_c2w": self.H_c2w.detach().cpu().numpy(),
+            "intrinsic": self.intrinsic.detach().cpu().numpy(),
+            "width_px": self.width_px,
+            "height_px": self.height_px,
+        }
+
+    @staticmethod
+    def from_state_dict(d: dict, device=None) -> "Camera":
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        return Camera(H_c2w=f32(d["H_c2w"]), intrinsic=f32(d["intrinsic"]),
+                      width_px=int(d["width_px"]),
+                      height_px=int(d["height_px"]))
+
+    def save(self, filename: str) -> None:
+        """Save as .json, else as .npz (numpy appends the suffix when the
+        name lacks it)."""
+        d = self.state_dict()
+        if filename.endswith(".json"):
+            with open(filename, "w") as f:
+                json.dump({**d, "H_c2w": d["H_c2w"].tolist(),
+                           "intrinsic": d["intrinsic"].tolist()}, f)
+        else:
+            np.savez(filename, **d)
+
+    @staticmethod
+    def load(filename: str, device=None) -> "Camera":
+        """Load from .npz / .json, or a reference-style torch .pt / .pth
+        state dict (tensors and ints, read with ``weights_only=True``)."""
+        if filename.endswith(".json"):
+            with open(filename) as f:
+                return Camera.from_state_dict(json.load(f), device)
+        if filename.endswith((".pt", ".pth")):
+            d = torch.load(filename, map_location="cpu", weights_only=True)
+            return Camera.from_state_dict(
+                {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                 for k, v in d.items()}, device)
+        with np.load(filename) as z:
+            return Camera.from_state_dict({k: z[k] for k in z.files}, device)

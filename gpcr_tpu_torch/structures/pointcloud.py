@@ -52,6 +52,22 @@ class PointCloud:
     def replace(self, **kw) -> "PointCloud":
         return dataclasses.replace(self, **kw)
 
+    def estimate_normals(self, k: int = 30) -> "PointCloud":
+        """PCA normals per batch item (the estimate of the reference's
+        ``simple`` task), computed on the host. Returns a new PointCloud
+        with ``normal_w`` filled."""
+        from . import reconstruct
+
+        outs = []
+        for ib in range(self.batch_size):
+            xyz = self.xyz_w[ib].detach().cpu().numpy()
+            mask = self.get_valid_mask()[ib, :, 0].cpu().numpy()
+            nrm = np.zeros_like(xyz)
+            nrm[mask] = reconstruct.estimate_normals(xyz[mask], k=k)
+            outs.append(nrm)
+        return self.replace(normal_w=torch.as_tensor(
+            np.stack(outs), device=self.device))
+
     @staticmethod
     def from_ply(path: str, device=None) -> "PointCloud":
         """Load from PLY (``gpcr_tpu_torch.io.read_ply``)."""

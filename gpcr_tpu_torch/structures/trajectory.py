@@ -1,5 +1,5 @@
-"""Camera trajectories (port of the ``circle`` mode of
-``gpcr_tpu/structures/trajectory.py``)."""
+"""Camera trajectories (port of the ``circle`` and ``udlrfb`` modes and
+the camera-file mode of ``gpcr_tpu/structures/trajectory.py``)."""
 
 from __future__ import annotations
 
@@ -69,8 +69,10 @@ def generate_camera_circle_path(
 
 
 class CameraTrajectory:
-    """Pattern of camera poses. Only ``circle`` is ported; other modes
-    raise NotImplementedError."""
+    """Pattern of camera poses. Modes: ``circle``, ``udlrfb`` (the fixed
+    six views) or a camera file (.npz / .json / .pt / .pth) whose path is
+    passed as ``mode``; the other modes of the JAX package (``assign``,
+    ``manual``, the spiral) raise NotImplementedError."""
 
     def __init__(
         self,
@@ -91,15 +93,24 @@ class CameraTrajectory:
             else np.random.RandomState(seed=rng_seed or 0)
         )
         self.params = params or {}
-        if mode != "circle":
+        if mode == "circle":
+            self.cam_poses = self._set_circle()
+        elif mode == "udlrfb":
+            self.cam_poses = self._set_udlrfb()
+        elif mode.lower().endswith((".pt", ".pth", ".npz", ".json")):
+            camera = Camera.load(mode, device=device)
+            if self.n_imgs is not None:
+                camera = camera.uniformly_sample(num_samples=self.n_imgs)
+            self.n_imgs = camera.H_c2w.shape[1]
+            self.cam_poses = camera.H_c2w
+        else:
             raise NotImplementedError(
                 f"camera trajectory mode '{mode}' is not ported yet "
-                f"(only 'circle')")
-        self.cam_poses = self._set_circle()
+                f"('circle', 'udlrfb' or a camera file)")
         if self.total is None:
             self.total = self.cam_poses.shape[0]
         if self.n_imgs is None:
-            raise ValueError("circle trajectories need n_imgs")
+            raise ValueError(f"a '{mode}' trajectory needs n_imgs")
 
     def _set_circle(self) -> torch.Tensor:
         out = []
@@ -125,6 +136,21 @@ class CameraTrajectory:
                     device=self.device,
                 )
             )
+        return torch.stack(out, dim=0)
+
+    def _set_udlrfb(self) -> torch.Tensor:
+        """Fixed 6 views: up, left, front, right, back, down."""
+        assert self.n_imgs == 6
+        max_r, min_r = self.params["max_r"], self.params["min_r"]
+        out = []
+        for _ in range(self.total or 1):
+            r = float(self.rng.rand(1)[0] * (max_r - min_r) + min_r)
+            ud = generate_camera_circle_path(3, 0.0, r, [0, 0], alt_yaxis=True,
+                                             device=self.device)
+            lrfb = generate_camera_circle_path(5, 0.0, r, [0, 90],
+                                               alt_yaxis=True,
+                                               device=self.device)
+            out.append(torch.stack([ud[0], *lrfb[:4], ud[1]], dim=0))
         return torch.stack(out, dim=0)
 
     def get_camera(self, fov: float, width_px: int, height_px: int) -> Camera:

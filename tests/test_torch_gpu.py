@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (``gpu`` marker): the stream
-blend, its contributor-count instantiation and the replay backward.
+blend, its contributor-count instantiation, the replay backward and the
+aligned all-tiles blend.
 
 Each test skips without a CUDA device; the decision is taken inside the
 ``cuda`` fixture, never at import. The file imports no JAX, so it also
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from gpcr_tpu_torch.ops import rasterize as TR
+from gpcr_tpu_torch.ops import rasterize_aligned as TRA
 from gpcr_tpu_torch.ops import rasterize_stream as TRS
 from gpcr_tpu_torch.ops import rasterize_stream_vjp as TV
 from gpcr_tpu_torch.render.renderer import pin_fp32
@@ -38,14 +40,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _binned(dev, channels, config, n=3000, seed=7, res=128):
-    """Seeded scene (tests/test_torch_stream.py's, larger), preprocessed
-    and binned on ``dev``; returns (stream, starts, order, tiles, grid_x)."""
+def _scene(dev, channels, n=3000, seed=7, res=128, overdraw=False):
+    """Seeded scene (tests/test_torch_stream.py's, larger) on ``dev``:
+    (means, opacity, settings, keyword arguments of the rasterizer). With
+    ``overdraw`` the gaussians are wide and nearly opaque, so most pixels
+    end their walk early."""
     rng = np.random.RandomState(seed)
     means = (rng.randn(n, 3) * 0.3 + np.array([0, 0, 2.5])).astype(np.float32)
     scales = (rng.rand(n, 3) * 0.05 + 0.01).astype(np.float32)
     rots = rng.randn(n, 4).astype(np.float32)
     op = rng.rand(n).astype(np.float32)
+    if overdraw:
+        scales, op = scales * 4.0, op * 0.1 + 0.9
     feats = rng.rand(n, channels).astype(np.float32)
     P = np.zeros((4, 4), np.float32)
     P[0, 0] = P[1, 1] = 1.0
@@ -62,8 +68,15 @@ def _binned(dev, channels, config, n=3000, seed=7, res=128):
     def t(x):
         return torch.from_numpy(x).to(dev)
 
-    prep = TR.preprocess(t(means), t(op), settings, config, scales=t(scales),
-                         rotations=t(rots), colors_precomp=t(feats))
+    return t(means), t(op), settings, dict(
+        scales=t(scales), rotations=t(rots), colors_precomp=t(feats))
+
+
+def _binned(dev, channels, config, n=3000, seed=7, res=128):
+    """The seeded scene preprocessed and binned on ``dev``; returns
+    (stream, starts, order, tiles, grid_x)."""
+    means, op, settings, kw = _scene(dev, channels, n, seed, res)
+    prep = TR.preprocess(means, op, settings, config, **kw)
     grid_x = res // 16
     num_tiles = grid_x * grid_x
     stream, starts, _ = TRS.bin_sorted_stream(prep, num_tiles, grid_x, config)
@@ -234,3 +247,82 @@ def test_refused_backward_launch_raises(cuda):
     with pytest.raises(ValueError, match="native resolution"):
         TRS.blend_tiles(stream, starts, order, nt, gx, 12,
                         config._replace(downscale=2), with_contrib=True)
+
+
+# --------------------------------------------------------------------------
+# the aligned all-tiles blend (csrc/aligned_blend.cu)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overdraw", [False, True])
+@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("channels", [3, 9, 12])
+def test_aligned_kernel_matches_plain(cuda, channels, chunk, overdraw):
+    """acc and T of every tile, on an image whose sides are not multiples
+    of 16; the over-drawn scene takes the block's early exit."""
+    res = 120
+    config = TR.RasterizeConfig(max_dup_per_gaussian=64, chunk_size=chunk)
+    means, op, settings, kw = _scene(cuda, channels, res=res,
+                                     overdraw=overdraw)
+    prep = TR.preprocess(means, op, settings, config, **kw)
+    gx = -(-res // 16)
+    nt = gx * gx
+    scal, feat, cstarts, _ = TRA.tile_bin_aligned(prep, nt, gx, config)
+    args = (cstarts, scal, feat, nt, gx, channels, config)
+    before = TRA.LAUNCHES
+    acc, t = TRA.blend_aligned_tiles(*args)
+    torch.cuda.synchronize()
+    assert TRA.LAUNCHES == before + 1
+    acc_p, t_p = TRA.blend_aligned_plain(*args)
+    assert acc.shape == (nt, 256, channels) and t.shape == (nt, 256)
+    for got, ref in ((acc, acc_p), (t, t_p)):
+        err = (got - ref).abs()
+        assert float(err.max()) <= 1e-4 and float(err.mean()) <= 1e-6
+    assert float(acc_p.abs().max()) > 0.1
+    if overdraw:
+        # pixels that stopped before the end of their tile's chunks
+        assert float((t_p < 1e-3).float().mean()) > 0.2
+    empty = cstarts[1:] == cstarts[:-1]
+    if bool(empty.any()):
+        assert bool((acc[empty] == 0).all()) and bool((t[empty] == 1).all())
+
+
+@pytest.mark.gpu
+def test_aligned_route_matches_stream_route(cuda):
+    """Both routes blend the same entries in the same order with the same
+    float32 products: the images differ only by the order of the channel
+    sums."""
+    config = TR.RasterizeConfig(max_dup_per_gaussian=64, chunk_size=128)
+    means, op, settings, kw = _scene(cuda, 12, res=120)
+    before = TRA.LAUNCHES
+    got, radii = TRA.rasterize_gaussians_aligned(means, op, settings,
+                                                 config=config, **kw)
+    assert TRA.LAUNCHES == before + 1
+    ref, ref_radii = TRS.rasterize_gaussians_stream(means, op, settings,
+                                                    config=config, **kw)
+    assert got.shape == (12, 120, 120) and torch.equal(radii, ref_radii)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_refused_aligned_launch_raises(cuda):
+    config = TR.RasterizeConfig(max_dup_per_gaussian=16, chunk_size=64)
+    means, op, settings, kw = _scene(cuda, 12, n=500)
+    prep = TR.preprocess(means, op, settings, config, **kw)
+    scal, feat, cstarts, _ = TRA.tile_bin_aligned(prep, 64, 8, config)
+    before = TRA.LAUNCHES
+    # 16K slots x 18 rows x 4 B of shared memory: more than an SM has
+    huge = config._replace(chunk_size=1 << 14)
+    wide = torch.zeros(1, 6, 1 << 14, device=cuda)
+    with pytest.raises(RuntimeError, match="aligned_blend launch failed"):
+        TRA.blend_aligned_tiles(
+            torch.zeros(65, dtype=torch.int32, device=cuda), wide,
+            torch.zeros(1, 12, 1 << 14, device=cuda), 64, 8, 12, huge)
+    assert TRA.LAUNCHES == before
+    with pytest.raises(TypeError):
+        TRA.blend_aligned_tiles(cstarts, scal.double(), feat, 64, 8, 12,
+                                config)
+    with pytest.raises(ValueError, match="feat must be"):
+        TRA.blend_aligned_tiles(cstarts, scal, feat[:, :9].contiguous(), 64,
+                                8, 12, config)

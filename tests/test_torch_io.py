@@ -43,6 +43,11 @@ def _imported_roots(path):
 def test_port_imports_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) > 30  # the walk really found the package
+    walked = {os.path.relpath(p, REPO) for p in files}
+    for name in ("metrics/psnr.py", "metrics/ssim.py", "metrics/lpips.py",
+                 "cli/pic_metrics.py", "cli/convert_lpips.py",
+                 "ops/rasterize_aligned.py", "structures/reconstruct.py"):
+        assert os.path.join("gpcr_tpu_torch", name) in walked, name
     bad = [f"{os.path.relpath(p, REPO)}:{line} imports {root}"
            for p in files for root, line in _imported_roots(p)
            if root in FORBIDDEN]

@@ -231,10 +231,78 @@ def test_load_pcml_reads_run_options(tmp_path, name):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--rpth", str(tmp_path) + "/", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="skip_mesh"):
-        TB.main(["simple"] + base)
-    with pytest.raises(NotImplementedError):
-        TB.main(["cam", "--skip_mesh"] + base)
+    with pytest.raises(NotImplementedError, match="shard"):
+        TB.main(["simple", "--shard", "views"] + base)
+    with pytest.raises(NotImplementedError, match="shard"):
+        TB.main(["cam", "--shard", "tiles"] + base)
+    with pytest.raises(NotImplementedError, match="down_sample_ratio"):
+        TB.main(["simple", "--down_sample_ratio", "0.5"] + base)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TB.main(["simple", "--skip_mesh", "--rpth", str(tmp_path) + "/"])
+
+
+def test_render_views_fused_aligned_route_matches_jax(monkeypatch):
+    """``render_views_fused(use_pallas=True)``: 2 views of 32 px, x2
+    supersampled, analytic splats; the JAX side runs its Pallas kernel in
+    interpret mode (atol 2e-4 / rtol 1e-3, the tests/test_pallas.py bar).
+    The route renders at 64 px and halves the image afterwards, and it
+    reports no dropped entries even where the stream route counts some."""
+    import functools
+
+    import jax.numpy as jnp
+
+    import gpcr_tpu.render as JRender
+    from gpcr_tpu.ops import rasterize as JR
+    from gpcr_tpu.ops.rasterize_pallas import rasterize_gaussians_pallas
+    from gpcr_tpu.utils import sh as jsh
+    from gpcr_tpu_torch.ops import rasterize as TR
+    from gpcr_tpu_torch.ops import rasterize_aligned as TRA
+    from gpcr_tpu_torch.utils import sh as tsh
+
+    monkeypatch.setattr(
+        JRender, "_get_pallas_raster",
+        lambda: functools.partial(rasterize_gaussians_pallas, interpret=True))
+    xyz, rgb, sf = synthetic_cloud(n=300)
+    n = len(xyz)
+    jcam, tcam = cameras(2, 32)
+    jrp = JRD.get_rasterize_param_from_camera(jcam, 60.0, sh_degree=1)
+    trp = TRD.get_rasterize_param_from_camera(tcam, 60.0, sh_degree=1)
+    means = ((xyz - 512) / sf).astype(np.float32)
+    scales = np.full((n, 3), 4.0 / sf, np.float32)  # wide: multi-tile rects
+    rots = np.tile(np.array([1, 0, 0, 0], np.float32), (n, 1))
+    opacity = np.ones(n, np.float32)
+    cfg = dict(max_dup_per_gaussian=2, chunk_size=32)
+    common = dict(height=64, width=64, out_h=32, out_w=32, sh_degree=1,
+                  with_normal=False, use_pallas=True)
+
+    jshs = jnp.concatenate([jsh.RGB2SH(jnp.asarray(rgb))[:, None, :],
+                            jnp.zeros((n, 12, 3))], axis=1)
+    ref = JRD.render_views_fused(
+        jrp["view_t"], jrp["full_t"], jrp["campos"], jnp.asarray(means),
+        jnp.asarray(scales), jnp.asarray(rots), jnp.asarray(opacity), jshs,
+        jnp.zeros((n, 3)), jnp.ones(n, bool), jnp.zeros(3), jrp["tanfov"],
+        config=JR.RasterizeConfig(**cfg), **common)
+
+    t = torch.from_numpy
+    tshs = torch.cat([tsh.RGB2SH(t(rgb))[:, None, :], torch.zeros(n, 12, 3)], 1)
+    targs = (trp["view_t"], trp["full_t"], trp["campos"], t(means), t(scales),
+             t(rots), t(opacity), tshs, torch.zeros(n, 3),
+             torch.ones(n, dtype=torch.bool), torch.zeros(3), trp["tanfov"])
+    before = TRA.LAUNCHES
+    got = TRD.render_views_fused(*targs, config=TR.RasterizeConfig(**cfg),
+                                 **common)
+    assert TRA.LAUNCHES == before  # CPU tensors take the plain version
+    for k in ("rgb", "xyz_w", "hitmap"):
+        assert got[k].shape == (2, 32, 32, 3), k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   atol=2e-4, rtol=1e-3, err_msg=k)
+    assert got["normal"] is None and float(got["hitmap"].max()) > 0.5
+    # overflow is dropped on this route (as in JAX) and counted on the other
+    assert int(got["dup_overflow"].sum()) == int(ref["dup_overflow"].sum()) == 0
+    stream = TRD.render_views_fused(
+        *targs, config=TR.RasterizeConfig(**cfg),
+        **dict(common, use_pallas=False))
+    assert int(stream["dup_overflow"].sum()) > 0
+    np.testing.assert_allclose(got["rgb"].numpy(), stream["rgb"].numpy(),
+                               atol=1e-5)

@@ -208,5 +208,11 @@ def test_circle_trajectory_and_raster_params_match_jax():
         _close(trp[k], jrp[k])
     for k in ("tanfov", "height", "width", "sh_degree"):
         assert trp[k] == jrp[k], k
+    # the fixed six views, and a mode that is not ported yet
+    radii = {"min_r": 3, "max_r": 4}
+    _close(TT.CameraTrajectory("udlrfb", n_imgs=6, total=1,
+                               params=radii).cam_poses,
+           JT.CameraTrajectory("udlrfb", n_imgs=6, total=1,
+                               params=radii).cam_poses)
     with pytest.raises(NotImplementedError):
-        TT.CameraTrajectory("udlrfb", n_imgs=6, total=1)
+        TT.CameraTrajectory("manual", n_imgs=6, total=1)
