@@ -19,7 +19,8 @@ Phases, each printing what it found:
    forward (same limits, counts equal) and the replay backward (per column
    max |diff| <= 1e-4 * max |plain| + 1e-6 and ||diff||_2 <= 1e-5 *
    ||plain||_2 + 1e-6, seeded non-uniform dL/dout and non-zero upstream
-   of T); then the aligned all-tiles kernel against its plain version
+   of T; the same bits on a second launch); then the aligned all-tiles
+   kernel against its plain version
    (acc and T, same limits) at C = 3, 9, 12 and chunk 64, 128, 256, on a
    500² image (sides no multiple of 16), each also on an over-drawn scene
    that takes the block's early exit;
@@ -31,7 +32,9 @@ Phases, each printing what it found:
    at scale factor 448, 12 circle views at 512² with x2 supersampling; the
    launch counter is reset just before it and must grow. Then a small
    learned render on the card is held against the CPU path, and the
-   kernel is timed against its plain version at this path's view-0 shape;
+   kernel is timed against its plain version at this path's view-0 shape,
+   beside that view's distributions over its tiles of the entries and of
+   the entries walked (``[tile-work]``);
 6. aligned route: ``render_views_fused(use_pallas=True)`` renders the 12
    golden views (50 dB against the golden PNGs, and against the stream
    route's float images of the same run) and view 0 of the learned cell's
@@ -55,7 +58,7 @@ Phases, each printing what it found:
    dropped entries. The two training kernels are then compared and timed
    against their plain versions at this path's view-0 shape, and the
    rasterizer's forward + backward is timed at 800K analytic gaussians,
-   1024², C = 3;
+   1024², C = 3 (each shape with its ``[tile-work]`` line);
 10. one JSON line describing the four kernels, then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
@@ -150,8 +153,8 @@ def phase_build():
         f"into {os.path.relpath(cuda_build.BUILD_DIR, HERE)}")
     # ptxas reports four lines per instantiation (entry, properties, stack
     # and spills, registers and shared memory); show C = 3 (the
-    # rasterizer-only timing), 9 (analytic) and 12 (learned, training).
-    # The forward's entries end in Lb0E (serving) or Lb1E (with the count)
+    # rasterizer-only timing), 9 (analytic) and 12 (learned, training):
+    # the serving and count forwards, the replay backward's two passes
     for name in names:
         lines = cuda_build.BUILD_LOGS.get(name, "").splitlines()
         for i, line in enumerate(lines):
@@ -187,17 +190,6 @@ def _scene(torch, n, res, channels, seed, dev, overdraw=False):
     return [t.to(dev) for t in (means, scales, rots, op, feats)], settings
 
 
-def _bin(torch, prep, res, config):
-    from gpcr_tpu_torch.ops import rasterize_stream as RS
-
-    grid_x = -(-res // 16)
-    num_tiles = grid_x * grid_x
-    stream, starts, _ = RS.bin_sorted_stream(prep, num_tiles, grid_x, config)
-    counts = starts[1:] - starts[:-1]
-    order = torch.argsort(-counts, stable=True).to(torch.int32)
-    return stream, starts, order, num_tiles, grid_x
-
-
 def _compare(torch, stream, starts, order, num_tiles, grid_x, channels,
              config):
     """Kernel vs plain on the same inputs; returns (max, mean) abs diff."""
@@ -225,7 +217,8 @@ def _upstream(torch, num_tiles, channels, seed, dev):
 def _compare_training(torch, stream, starts, order, num_tiles, grid_x,
                       channels, config, seed):
     """The contributor-count forward and the replay backward against their
-    plain versions on the same inputs. Returns (forward max |d|, backward
+    plain versions on the same inputs, and the backward against a second
+    launch of itself (the same bits). Returns (forward max |d|, backward
     max |d|, backward worst per-column ratio to its max limit and to its
     L2 limit, (walked, live) pair counts)."""
     from gpcr_tpu_torch.ops import rasterize_stream as RS
@@ -248,7 +241,10 @@ def _compare_training(torch, stream, starts, order, num_tiles, grid_x,
     bargs = (stream, starts, order, dl_dout, cnt, dt_tot, t, grid_x, channels,
              config)
     rows = RV.blend_tiles_bwd(*bargs)
+    again = RV.blend_tiles_bwd(*bargs)
     torch.cuda.synchronize()
+    check(bool(torch.equal(rows, again)), "replay backward gave other bits "
+          f"on a second launch at {int((rows != again).sum())} values")
     rows_p = RV.blend_tiles_bwd_plain(*bargs)
     torch.cuda.synchronize()
     col_err = (rows - rows_p).abs().amax(dim=0)
@@ -270,6 +266,7 @@ def _compare_training(torch, stream, starts, order, num_tiles, grid_x,
 def phase_kernel_vs_plain(torch, dev):
     """Returns the worst max |d| of (blend, count forward, replay
     backward) against their plain versions."""
+    from gpcr_tpu_torch.utils.blend_inputs import bin_view
     from gpcr_tpu_torch.ops import rasterize as R
 
     worst = 0.0
@@ -283,7 +280,7 @@ def phase_kernel_vs_plain(torch, dev):
                                      opacity_radius=True)
             prep = R.preprocess(means, op, settings, base, scales=scales,
                                 rotations=rots, colors_precomp=feats)
-            stream, starts, order, nt, gx = _bin(torch, prep, res, base)
+            stream, starts, order, nt, gx = bin_view(prep, res, base)
             active = int((starts[1:] > starts[:-1]).sum())
             for ds in (1, 2):
                 for mat in (None, active):
@@ -306,7 +303,8 @@ def phase_kernel_vs_plain(torch, dev):
                 f"entries={stream.shape[0]} pairs walked / live="
                 f"{pairs[0]} / {pairs[1]}: count forward "
                 f"max|d|={a_err:.3e}, n_contrib equal; replay backward "
-                f"max|d|={b_err:.3e}, worst column at {ratio:.3f} of its "
+                f"bit-equal on two launches, max|d|={b_err:.3e}, worst "
+                f"column at {ratio:.3f} of its "
                 f"limit ({BWD_REL:g} * max|plain| + {BWD_ABS:g}) and at "
                 f"{l2_ratio:.3f} of its L2 limit ({BWD_L2_REL:g} * "
                 f"||plain||_2 + {BWD_ABS:g})")
@@ -499,28 +497,16 @@ def phase_learned_small(torch):
 def _learned_splats(torch, ckpt):
     """The learned cell's splats and raster parameters, built as the
     renderer builds them (same weights, cloud, cameras and config): a dict
-    of ``render_views_fused``'s arguments plus ``config``."""
-    from gpcr_tpu_torch.cli import benchmark as B
+    of ``render_views_fused``'s arguments plus ``config``
+    (``utils/blend_inputs.learned_splats``)."""
     from gpcr_tpu_torch.render import renderer as RD
     from gpcr_tpu_torch.structures.pointcloud import PointCloud
+    from gpcr_tpu_torch.utils.blend_inputs import learned_splats
 
-    args = B.build_parser().parse_args(["pcrender", "--skip_mesh",
-                                        "--voxelized", "--dup_cap",
-                                        str(DUP_CAP)])
-    config = B._raster_config(args)._replace(k_budget=None)
     rdr = RD.PCMLRender(ckpt, voxelized=True, scale_factor=448, device="cuda")
     pcd = PointCloud.from_ply(os.path.join(WORK, "learned_ds", "0519",
                                            "pcd_0.ply"), device="cuda")
-    with torch.no_grad():
-        sp, _, _ = rdr.encode(pcd)
-        cam, _ = B._camera_for(args, "pcrender", torch.device("cuda"))
-        bg3 = torch.ones(3, device="cuda")
-        rp = RD.get_rasterize_param_from_camera(cam, 45, bg=bg3, sh_degree=1)
-    return dict(
-        rp=rp, config=config, bg3=bg3,
-        means=RD.pcgc_rescale(sp.primitives, 512, 448),
-        scales=sp.scale * float(3 ** 0.5 / 448 * 6), rotation=sp.rotation,
-        opacity=sp.opacity[:, 0], sh=sp.sh, normal=sp.normal, valid=sp.valid)
+    return learned_splats(rdr, pcd, DUP_CAP)
 
 
 def _render_fused(torch, sp, views, use_pallas, with_normal=True):
@@ -538,36 +524,6 @@ def _render_fused(torch, sp, views, use_pallas, with_normal=True):
             out_w=rp["width"] // 2, sh_degree=rp["sh_degree"],
             config=sp["config"], with_normal=with_normal,
             use_pallas=use_pallas)
-
-
-def _view0_prep(torch, sp):
-    """The learned path's view-0 preprocessed splats (what both binnings
-    take): (prep, channels, raster size)."""
-    from gpcr_tpu_torch.ops import rasterize as R
-    from gpcr_tpu_torch.render import renderer as RD
-
-    rp = sp["rp"]
-    with torch.no_grad():
-        feats, bg = RD.fuse_view_features(
-            rp["campos"][0], sp["means"], sp["sh"], sp["normal"], sp["bg3"], 1,
-            True)
-        settings = R.GaussianRasterizationSettings(
-            rp["height"], rp["width"], rp["tanfov"], rp["tanfov"], bg, 1.0,
-            rp["view_t"][0], rp["full_t"][0], 1, rp["campos"][0])
-        prep = R.preprocess(sp["means"], sp["opacity"], settings, sp["config"],
-                            scales=sp["scales"], rotations=sp["rotation"],
-                            colors_precomp=feats)
-    return prep, feats.shape[1], rp["height"]
-
-
-def _view0_stream(torch, sp):
-    """The learned path's view-0 stream blend inputs (downscale 2, as the
-    renderer sets it)."""
-    config = sp["config"]._replace(downscale=2)
-    prep, channels, res = _view0_prep(torch, sp)
-    with torch.no_grad():
-        stream, starts, order, nt, gx = _bin(torch, prep, res, config)
-    return stream, starts, order, nt, gx, channels, config
 
 
 def _event_ms(torch, fn, reps):
@@ -617,11 +573,28 @@ def _bwd_bound(pairs, entries, ncols, channels, n_pix):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _log_tile_work(tag, starts, order, cnt, chunk, forward):
+    """The step-1 distributions of a blend's work over its rendered tiles
+    (``utils/blend_inputs.tile_work``): entries per tile, entries a tile's
+    one-CTA walk covers, and the share of those (entry, pixel) slots whose
+    pixel had already stopped."""
+    from gpcr_tpu_torch.utils.blend_inputs import tile_work
+
+    w = tile_work(starts, order, cnt, chunk, forward)
+    d = " / ".join(f"{w[k]['max']} / {w[k]['p99']:.0f} / {w[k]['median']:.0f}"
+                   for k in ("entries", "walked"))
+    log(f"[tile-work] {tag}: {w['tiles']} non-empty tiles; entries per tile "
+        f"and walked per tile (max / p99 / median) {d}; "
+        f"{w['stopped_share']:.3f} of the walked (entry, pixel) slots belong "
+        f"to pixels already stopped")
+
+
 def _pairs(torch, stream, starts, order, nt, gx, channels, config):
     """(walked, live) (entry, pixel) pairs of the blend on this stream: the
     sums of the contributor counts and of the composited positions (the
-    walk is the same at downscale 1 and 2). The walked count is the CUDA
-    kernel's own, held equal to the plain version's."""
+    walk is the same at downscale 1 and 2), and the counts themselves.
+    The walked count is the CUDA kernel's own, held equal to the plain
+    version's."""
     from gpcr_tpu_torch.ops import rasterize_stream as RS
 
     cfg = config._replace(downscale=1)
@@ -631,16 +604,20 @@ def _pairs(torch, stream, starts, order, nt, gx, channels, config):
         stream, starts, order, nt, gx, channels, cfg, with_contrib=True,
         with_live=True)
     check(bool(torch.equal(cnt, cnt_p)), "n_contrib differs from plain")
-    return int(cnt.sum()), int(live.sum())
+    return int(cnt.sum()), int(live.sum()), cnt
 
 
 def phase_timing(torch, sp):
     """Kernel 1 at the learned view-0 shape; also returns the (walked,
     live) pair counts of that stream and its number of entries."""
+    from gpcr_tpu_torch.utils.blend_inputs import view0_stream
     from gpcr_tpu_torch.ops import rasterize_stream as RS
 
-    stream, starts, order, nt, gx, channels, config = _view0_stream(torch, sp)
-    pairs = _pairs(torch, stream, starts, order, nt, gx, channels, config)
+    stream, starts, order, nt, gx, channels, config = view0_stream(sp)
+    *pairs, cnt = _pairs(torch, stream, starts, order, nt, gx, channels,
+                         config)
+    _log_tile_work("learned view 0", starts, order, cnt, config.chunk_size,
+                   forward=True)
     bound_ms, bound_by = _fwd_bound(
         pairs, stream.shape[0], stream.shape[1], channels,
         order.numel() * 256 // config.downscale ** 2, 0)
@@ -771,9 +748,10 @@ def phase_timing_aligned(torch, sp, pairs, entries):
     timing, full-size output), in turns plain / kernel / kernel / plain.
     ``pairs`` are kernel 1's (walked, live) counts on these ``entries``:
     the walk is the same, and padding slots are no work the data needs."""
+    from gpcr_tpu_torch.utils.blend_inputs import view0_prep
     from gpcr_tpu_torch.ops import rasterize_aligned as RA
 
-    prep, channels, res = _view0_prep(torch, sp)
+    prep, channels, res = view0_prep(sp)
     config = sp["config"]
     gx = -(-res // 16)
     nt = gx * gx
@@ -1057,38 +1035,6 @@ def phase_train_stages(torch, trainer):
             torch.device("cuda"), 14)
 
 
-def _train_view0_stream(torch, trainer):
-    """The training path's view-0 blend inputs, built as the trainer builds
-    them: one batch of the CLI's loader, the trained network, the
-    trainer's raster config."""
-    from gpcr_tpu_torch.ops import rasterize as R
-    from gpcr_tpu_torch.render import renderer as RD
-    from gpcr_tpu_torch.train.data import DataLoader
-
-    batch = DataLoader(batch_size=1, n_points=200_000, n_views=2, hw=512,
-                       scale_factor=448, seed=0, device="cuda").next_batch()
-    # tile_batch only sizes the plain versions' steps
-    config = trainer.config._replace(downscale=1, tile_batch=256)
-    with torch.no_grad():
-        (means, scales, rotation, opacity, sh, normal, valid,
-         with_normal) = trainer._encode_splats(
-             batch["coords"][0], batch["rgb"][0], batch["valid"][0])
-        campos = batch["campos"][0, 0]
-        feats, bg = RD.fuse_view_features(
-            campos, means, sh, normal, torch.zeros(3, device="cuda"),
-            trainer.info.sh_deg, with_normal)
-        settings = R.GaussianRasterizationSettings(
-            512, 512, batch["tanfov"], batch["tanfov"], bg, 1.0,
-            batch["view_t"][0, 0], batch["full_t"][0, 0], trainer.info.sh_deg,
-            campos)
-        prep = R.preprocess(means, opacity, settings, config, scales=scales,
-                            rotations=rotation, colors_precomp=feats,
-                            valid_mask=valid)
-        stream, starts, order, nt, gx = _bin(torch, prep, 512, config)
-    return (stream, starts, order, nt, gx, feats.shape[1], config,
-            int(means.shape[0]))
-
-
 def _time_training_kernels(torch, tag, stream, starts, order, nt, gx,
                            channels, config, seed, plain_reps=2):
     """Compare and time the count forward and the replay backward against
@@ -1101,6 +1047,7 @@ def _time_training_kernels(torch, tag, stream, starts, order, nt, gx,
         torch, stream, starts, order, nt, gx, channels, config, seed)
     args = (stream, starts, order, nt, gx, channels, config)
     _, t, cnt = RS.blend_tiles(*args, with_contrib=True)
+    _log_tile_work(tag, starts, order, cnt, config.chunk_size, forward=False)
     dl_dout, dt_tot = _upstream(torch, nt, channels, seed, stream.device)
     bargs = (stream, starts, order, dl_dout, cnt, dt_tot, t, gx, channels,
              config)
@@ -1138,8 +1085,10 @@ def _time_training_kernels(torch, tag, stream, starts, order, nt, gx,
 
 def phase_timing_train(torch, trainer):
     """The two training kernels at the training path's view-0 shape."""
+    from gpcr_tpu_torch.utils.blend_inputs import train_view0
+
     (stream, starts, order, nt, gx, channels, config,
-     n_splats) = _train_view0_stream(torch, trainer)
+     n_splats) = train_view0(trainer, 200_000, 512)
     log(f"[timing-train] training view 0: {n_splats} splats, "
         f"{stream.shape[0]} entries per view, 512², C={channels}")
     return _time_training_kernels(torch, "train view 0", stream, starts,
@@ -1152,45 +1101,20 @@ def phase_timing_raster(torch):
     one whole forward + ``loss.backward()``, each in turns plain / kernel /
     kernel / plain. The plain turns of the whole step swap the two plain
     versions into the autograd Function (here only; the port never does)."""
-    import numpy as np
-
+    from gpcr_tpu_torch.utils.blend_inputs import analytic_scene, bin_view
     from gpcr_tpu_torch.ops import rasterize as R
     from gpcr_tpu_torch.ops import rasterize_stream as RS
     from gpcr_tpu_torch.ops import rasterize_stream_vjp as RV
-    from gpcr_tpu_torch.render import renderer as RD
 
-    dev = torch.device("cuda")
-    rng = np.random.RandomState(0)
-    n, sf = 800_000, 448
-    v = rng.randn(n, 3)
-    v /= np.linalg.norm(v, axis=1, keepdims=True)
-    v[:, 1] *= 1.6
-    v *= 0.55
-    coords = ((v + rng.randn(n, 3) * 0.01) * sf + 512).astype(np.float32)
-    cam = RD.generate_cam({"fov": 45.0, "width_px": 512, "height_px": 512,
-                           "mode": "circle", "n_imgs": 2, "d": 0, "r": 3,
-                           "center_angles": [90, 0]}, device=dev)
-    bg = torch.ones(3, device=dev)
-    rp = RD.get_rasterize_param_from_camera(cam, 45.0, bg=bg, sh_degree=0,
-                                            super_sample_rate=2)
-    res = rp["height"]
-    config = R.RasterizeConfig(max_dup_per_gaussian=8, chunk_size=128,
-                               differentiable=True)
-    settings = R.GaussianRasterizationSettings(
-        res, res, rp["tanfov"], rp["tanfov"], bg, 1.0, rp["view_t"][0],
-        rp["full_t"][0], 0, rp["campos"][0])
-    means = RD.pcgc_rescale(torch.from_numpy(coords).to(dev), 512, sf)
-    leaves = [means, torch.full((n, 3), 1.0 / sf, device=dev),
-              torch.tensor([1.0, 0, 0, 0], device=dev).repeat(n, 1),
-              torch.full((n,), 0.9, device=dev),
-              torch.from_numpy(rng.rand(n, 3).astype(np.float32)).to(dev)]
+    leaves, settings, config = analytic_scene(800_000, torch.device("cuda"))
     leaves = [x.requires_grad_(True) for x in leaves]
     m, sc, q, o, f = leaves
 
     with torch.no_grad():
         prep = R.preprocess(m, o, settings, config, scales=sc, rotations=q,
                             colors_precomp=f)
-        stream, starts, order, nt, gx = _bin(torch, prep, res, config)
+        stream, starts, order, nt, gx = bin_view(prep, settings.image_height,
+                                                 config)
     kernels = _time_training_kernels(
         torch, "800K analytic 1024²", stream, starts, order, nt, gx, 3,
         config, seed=13, plain_reps=1)

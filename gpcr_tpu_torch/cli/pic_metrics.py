@@ -32,7 +32,7 @@ def get_pic_list(pic_pth: str) -> T.List[str]:
     return [os.path.join(pic_pth, n) for n in lis if n[:4] == "rgb_"]
 
 
-def _load_pairs(p1: str, p2: str, device="cpu"):
+def _load_pairs(p1: str, p2: str, device="cuda"):
     """Yields (path of the first image, img1, img2) as (H, W, 3) float32
     tensors on ``device``, img1 resized to img2's size where they differ."""
     dev = torch.device(device)
@@ -52,7 +52,7 @@ def _load_pairs(p1: str, p2: str, device="cpu"):
 
 
 def psnr_dirs(p1: str, p2: str, diff_dir: T.Optional[str] = None,
-              device="cpu") -> float:
+              device="cuda") -> float:
     total, n = 0.0, 0
     for f1, img1, img2 in _load_pairs(p1, p2, device):
         total += float(psnr255(img1, img2))
@@ -69,7 +69,7 @@ def psnr_dirs(p1: str, p2: str, diff_dir: T.Optional[str] = None,
     return psnr
 
 
-def msssim_dirs(p1: str, p2: str, device="cpu") -> float:
+def msssim_dirs(p1: str, p2: str, device="cuda") -> float:
     total, n = 0.0, 0
     for _, img1, img2 in _load_pairs(p1, p2, device):
         total += float(_ms_ssim(img1.permute(2, 0, 1), img2.permute(2, 0, 1),
@@ -82,7 +82,7 @@ def msssim_dirs(p1: str, p2: str, device="cpu") -> float:
 
 def lpips_dirs(p1: str, p2: str, strict_parity: bool = True,
                weights_path: T.Optional[str] = None,
-               device="cpu") -> T.Optional[float]:
+               device="cuda") -> T.Optional[float]:
     wp = weights_path or DEFAULT_WEIGHTS
     if not lpips_available(wp):
         print(

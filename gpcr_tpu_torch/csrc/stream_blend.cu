@@ -12,69 +12,276 @@
 //   stream  (entries, ncols) f32 rows [x, y, conic(3), op, depth, 0, feat(C)],
 //           sorted by (tile, depth rank);
 //   starts  (num_tiles + 1,) i32, tile t owns rows [starts[t], starts[t+1]);
-//   order   (n_order,) i32 tile ids to render, one CTA each;
+//   order   (n_order,) i32 tile ids to render, one CTA each, launched in this
+//           order (render_order gives them longest first);
 //   acc_out (num_tiles, P_out, C) f32 and t_out (num_tiles, P_out) f32, written
 //           at the tile's own position (tiles never rendered keep what the
 //           caller filled in: acc 0, T 1). P_out = 256, or 64 with downscale 2.
 //
-// Design. One CTA per rendered 16x16 tile, one thread per pixel (256). The
-// CTA stages chunk rows of its stream range in shared memory with one
-// coalesced copy, then every thread walks them sequentially; shared-memory
-// reads of a row are broadcasts. The block leaves the walk as soon as every
-// pixel is done (__syncthreads_count). With downscale 2 the CTA reduces the
-// 2x2 means of acc and T in shared memory and writes the 8x8 output tile:
-// compositing is linear, so out = acc_down + T_down * bg stays exact.
-//
 // What bounds it on Hopper. Every walked (entry, pixel) pair costs its alpha
 // and the two skip tests (16 FP32 operations, one of them expf); only a live
-// pair (not skipped) goes on to the 4 + 2C operations of compositing, and on
-// 16x16 tiles under 3-sigma rects a few percent to a fifth of the walked
-// pairs are live. The stream bytes are read once per tile (80 B per entry at
-// C = 12). The floor of this work on an H100 is then set by bytes on the
-// learned streams and by operations on dense analytic ones; the kernel is
-// far above either floor, held by the serial dependence of each pixel's walk
-// and by one CTA per tile leaving SMs empty when few tiles are non-empty.
-// Big tiles (thousands of entries) run long on one SM while small ones end
-// early; the per-tile CTA grid lets the hardware scheduler backfill SMs.
-// Later work: cp.async double-buffering of the next chunk, and splitting the
-// walk so tiles with many entries use more than one CTA.
+// pair (not skipped) goes on to the 4 + 2C operations of compositing. The
+// stream bytes are read once per tile (80 B per entry at C = 12). The floor
+// is set by bytes on the learned streams (19.7% of the walked pairs live)
+// and by operations on dense analytic ones. The first version (one CTA per
+// tile, one thread per pixel, every pixel testing every entry) sat 9x above
+// it: at the learned view 0 the CTA of the longest tile (8,984 entries, 6,403
+// walked) spanned the whole kernel, half of the walked (entry, pixel) slots
+// belonged to pixels that had already stopped, and every walked pair paid the
+// expf whether or not its splat could reach the pixel.
 //
-// Contributor count (kContrib). The training forward replaces the TPU launch
-// gpcr_tpu/ops/rasterize_stream_vjp.py::_fwd_impl (pl.pallas_call of
-// _stream_kernel with with_contrib=True, downscale 1). Beside acc and T it
-// writes, per pixel, how many positions of the tile's range [s, e) the pixel
-// walked before it stopped: the in-tile index of the crossing entry when it
-// terminated, else e - s. Skipped entries count as positions. The replay
-// backward (stream_blend_bwd.cu) masks entries at or past this count. The
-// count is one int register and one store per pixel (4 B beside the 52 B of
-// acc and T at C = 12), so what bounds the kernel is unchanged.
-// It is a template flag so that the serving instantiation carries no extra
-// register or branch; the TPU kernel's count also runs over the padding rows
-// of a tile's last chunk, which this kernel never stages, so a pixel that
-// never terminates reports e - s here (the backward's pos < e mask makes the
-// two equivalent).
+// Design of the serving kernel (stream_blend_kernel).
+// - One CTA per rendered 16x16 tile, one thread per pixel; warp w covers the
+//   8x4 pixel block at ((w & 1) * 8, (w >> 1) * 4) of the tile.
+// - Warp-level culling. When a chunk has landed in shared memory, one thread
+//   per entry computes which of the 8 blocks its alpha can reach at >= 1/255
+//   (block_mask: the bounding box of the ellipse q(d) <= 2 ln(255 op), widened
+//   for float rounding, with no culling where the conic is not clearly
+//   positive definite). Each warp turns 32 entries' mask bits into one ballot
+//   word and walks only its set bits: a culled pair, which the plain version
+//   skips, costs no expf and no instruction of the walk. A warp whose pixels
+//   have all stopped leaves the chunk; the CTA leaves the tile when all have.
+// - The walk takes its visited entries kGroup at a time: their alphas are
+//   computed before any is composited, so the expf chains overlap (the
+//   compositing, T's product, stays in order). Rows whose width is a
+//   multiple of 16 B are read from shared memory with 16-byte loads.
+// - Loads. Chunks are staged with cp.async into two shared-memory buffers
+//   (16 B per copy when the rows are a multiple of 16 B, 4 B otherwise), the
+//   next chunk's copy in flight while the current one is walked.
+// - Order. Tiles run in the order given; render_order sorts them by
+//   descending entry count, so the longest tiles start first.
+// - With downscale 2 the CTA reduces the 2x2 means of acc and T in shared
+//   memory (row-major pixel positions) and writes the 8x8 output tile:
+//   compositing is linear, so out = acc_down + T_down * bg stays exact.
+// Splitting long tiles over several CTAs would need the transmittance in
+// front of each part, and a product of part factors rounds otherwise than
+// the sequential one, which moves the 1e-4 termination of some pixels by an
+// entry: this kernel keeps every pixel's walk sequential and exact.
+//
+// Contributor count (stream_blend_contrib_kernel). The training forward
+// replaces the TPU launch gpcr_tpu/ops/rasterize_stream_vjp.py::_fwd_impl
+// (pl.pallas_call of _stream_kernel with with_contrib=True, downscale 1).
+// Beside acc and T it writes, per pixel, how many positions of the tile's
+// range [s, e) the pixel walked before it stopped: the in-tile index of the
+// crossing entry when it terminated, else e - s. Skipped entries count as
+// positions. The replay backward (stream_blend_bwd.cu) masks entries at or
+// past this count. It keeps the first version's walk: row-major warps, one
+// coalesced copy per chunk, every pixel testing every entry (the TPU
+// kernel's count also runs over the padding rows of a tile's last chunk,
+// which this kernel never stages, so a pixel that never terminates reports
+// e - s here; the backward's pos < e mask makes the two equivalent).
 //
 // Numerics. Built with -fmad=false and without --use_fast_math, and using
 // expf, so each (entry, pixel) alpha and every transmittance product is the
-// same float32 value the plain PyTorch version computes; only the channel
-// accumulation order differs.
+// same float32 value the plain PyTorch version computes (culling removes only
+// pairs the plain version skips); the channel sums differ in order, and the
+// serving kernel forms them with fused multiply-adds.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
+using gpcr::kPix;
+using gpcr::kTile;
 
-template <int C, bool kContrib>
+// Visited entries whose alphas overlap. 4 was faster than 1 and 2 at the
+// learned view 0 on an H100, and 8 no faster (PERF.md §6).
+constexpr int kGroup = 4;
+
+// One (entry, pixel) pair's power and alpha, as the plain version forms them
+// (no multiply-add contraction: the same float32 value). kVec4: the staged
+// rows are a multiple of 16 B, so a row is read with 16-byte loads.
+struct PairAlpha {
+  float power, alpha;
+};
+
+template <bool kVec4>
+__device__ __forceinline__ PairAlpha pair_alpha(const float* r, float px,
+                                                float py) {
+  float x, y, ca, cb, cc, op;
+  if constexpr (kVec4) {
+    const float4 g = *reinterpret_cast<const float4*>(r);
+    const float2 h = *reinterpret_cast<const float2*>(r + 4);
+    x = g.x, y = g.y, ca = g.z, cb = g.w, cc = h.x, op = h.y;
+  } else {
+    x = r[0], y = r[1], ca = r[2], cb = r[3], cc = r[4], op = r[5];
+  }
+  const float dx = x - px;
+  const float dy = y - py;
+  PairAlpha o;
+  o.power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+  o.alpha = fminf(0.99f, op * expf(o.power));
+  return o;
+}
+
+// Composite one pair into (T, acc) unless it is skipped; a pair whose
+// T * (1 - alpha) would fall below 1e-4 stops the pixel instead. T is the
+// plain version's product; acc takes fused multiply-adds (its sums run in
+// another order than the plain version's anyway).
+template <int C, bool kVec4>
+__device__ __forceinline__ void composite(const float* r, PairAlpha pa,
+                                          float& T, float (&acc)[C],
+                                          int& done) {
+  if (pa.power > 0.0f || pa.alpha < 1.0f / 255.0f) return;
+  const float test_T = T * (1.0f - pa.alpha);
+  if (test_T < 0.0001f) {
+    done = 1;
+    return;
+  }
+  const float w = pa.alpha * T;
+  if constexpr (kVec4) {
+#pragma unroll
+    for (int q = 0; q < (C + 3) / 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(r + 8)[q];
+      const float fv[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * q + k < C) acc[4 * q + k] = fmaf(fv[k], w, acc[4 * q + k]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = fmaf(r[8 + c], w, acc[c]);
+  }
+  T = test_T;
+}
+
+// ---- serving kernel ----------------------------------------------------------
+
+template <int C, bool kVec4>
 __global__ void __launch_bounds__(kPix)
 stream_blend_kernel(const float* __restrict__ stream, int ncols,
                     const int* __restrict__ starts,
                     const int* __restrict__ order, int grid_x, int chunk,
-                    int downscale, float* __restrict__ acc_out,
-                    float* __restrict__ t_out,
-                    int* __restrict__ n_contrib_out) {
+                    int downscale, bool vec, size_t mask_off,
+                    float* __restrict__ acc_out, float* __restrict__ t_out) {
+  GPCR_DIAG_SPAN;
+  extern __shared__ float4 smem4[];
+  float* const base = reinterpret_cast<float*>(smem4);  // 2 x chunk rows
+  unsigned char* const mask =
+      reinterpret_cast<unsigned char*>(smem4) + mask_off;  // chunk bytes
+
+  const int tile = order[blockIdx.x];
+  const int s = starts[tile];
+  const int e = starts[tile + 1];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const gpcr::WarpPixel wp = gpcr::warp_pixel(tid);
+  const int p = wp.p;
+  const float x0 = (float)((tile % grid_x) * kTile);
+  const float y0 = (float)((tile / grid_x) * kTile);
+  const float px = x0 + (float)wp.lx;
+  const float py = y0 + (float)wp.ly;
+
+  float T = 1.0f;
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+  int done = 0;
+
+  const int nch = (e - s + chunk - 1) / chunk;
+  if (nch > 0)
+    gpcr::stage(base, stream + (size_t)s * ncols, min(chunk, e - s) * ncols,
+                vec);
+  for (int ch = 0; ch < nch; ++ch) {
+    const int first = s + ch * chunk;
+    const int n = min(chunk, e - first);
+    if (ch + 1 < nch) {
+      gpcr::stage(base + (size_t)((ch + 1) & 1) * chunk * ncols,
+                  stream + (size_t)(first + chunk) * ncols,
+                  min(chunk, e - first - chunk) * ncols, vec);
+    } else {
+      gpcr::cp_async_commit();  // an empty group keeps the wait uniform
+    }
+    gpcr::cp_async_wait_all_but_newest();
+    __syncthreads();  // this chunk's rows are in
+    const float* rows = base + (size_t)(ch & 1) * chunk * ncols;
+    for (int j = tid; j < n; j += kPix)
+      mask[j] = (unsigned char)gpcr::block_mask(rows + j * ncols, x0, y0);
+    __syncthreads();
+
+    if (!__all_sync(0xffffffffu, done)) {
+      for (int jb = 0; jb < n; jb += 32) {
+        unsigned bits = __ballot_sync(
+            0xffffffffu, jb + lane < n && ((mask[jb + lane] >> warp) & 1u));
+        while (bits) {
+          // kGroup visited entries at a time: their alphas are independent,
+          // only the compositing runs in order
+          int js[kGroup];
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            js[g] = bits ? jb + __ffs(bits) - 1 : -1;
+            bits &= bits - 1u;
+          }
+          if (done) continue;
+          PairAlpha pa[kGroup];
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g)  // js[0] stands in for a gap
+            pa[g] = pair_alpha<kVec4>(rows + max(js[g], js[0]) * ncols, px,
+                                      py);
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g)
+            if (js[g] >= 0 && !done)
+              composite<C, kVec4>(rows + js[g] * ncols, pa[g], T, acc, done);
+        }
+        if (__all_sync(0xffffffffu, done)) break;
+      }
+    }
+    // every thread is done with this chunk's rows and masks
+    if (__syncthreads_count(done) == kPix) break;
+  }
+  gpcr::cp_async_wait_all();  // a copy of the next chunk may still fly
+
+  if (downscale == 1) {
+    float* dst = acc_out + ((size_t)tile * kPix + p) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) dst[c] = acc[c];
+    t_out[(size_t)tile * kPix + p] = T;
+    return;
+  }
+  // downscale == 2: 2x2 means through shared memory (stride C + 1 floats
+  // per pixel: acc then T), over the row buffers
+  float* red = base;
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < C; ++c) red[p * (C + 1) + c] = acc[c];
+  red[p * (C + 1) + C] = T;
+  __syncthreads();
+  constexpr int kOut = kTile / 2;
+  if (tid < kOut * kOut) {
+    const int qy = tid / kOut;
+    const int qx = tid % kOut;
+    const float* a = red + ((2 * qy) * kTile + 2 * qx) * (C + 1);
+    const float* b = a + (C + 1);
+    const float* c2 = a + kTile * (C + 1);
+    const float* d = c2 + (C + 1);
+    float* dst = acc_out + ((size_t)tile * (kOut * kOut) + tid) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) dst[c] = (a[c] + b[c] + c2[c] + d[c]) * 0.25f;
+    t_out[(size_t)tile * (kOut * kOut) + tid] =
+        (a[C] + b[C] + c2[C] + d[C]) * 0.25f;
+  }
+}
+
+// ---- contributor-count kernel (training forward) ----------------------------
+
+// The first version of this file's kernel, unchanged but for its name: only
+// its kContrib = true instantiation is launched, always with downscale 1
+// (launch_contrib sizes shared memory for that alone; the downscale == 2
+// branch is never taken). The unused flag and branch stay because the
+// compiler schedules this code best: a copy with only those two removed,
+// walk unchanged, compiled to 32 registers (40 here at C = 12) and took
+// 1.8746 / 1.8734 ms against 1.5809 / 1.5795 ms at the training view 0 on
+// an H100 (18.6% slower; equal at the 800K analytic shape; PERF.md §6).
+template <int C, bool kContrib>
+__global__ void __launch_bounds__(kPix)
+stream_blend_contrib_kernel(const float* __restrict__ stream, int ncols,
+                            const int* __restrict__ starts,
+                            const int* __restrict__ order, int grid_x,
+                            int chunk, int downscale,
+                            float* __restrict__ acc_out,
+                            float* __restrict__ t_out,
+                            int* __restrict__ n_contrib_out) {
   extern __shared__ float smem[];
   float* rows = smem;  // chunk * ncols staged stream rows
 
@@ -155,51 +362,63 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
   }
 }
 
-template <int C, bool kContrib>
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();  // clear it for the caller
+  return err;
+}
+
+template <int C>
 cudaError_t launch(const float* stream, int ncols, const int* starts,
                    const int* order, int n_order, int grid_x, int chunk,
                    int downscale, float* acc_out, float* t_out,
-                   int* n_contrib_out, cudaStream_t cuda_stream) {
-  size_t smem = (size_t)chunk * ncols * sizeof(float);
-  if (downscale == 2) smem += (size_t)kPix * (C + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_blend_kernel<C, kContrib>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, or the caller's next launch check sees it
-    return err;
-  }
-  stream_blend_kernel<C, kContrib><<<n_order, kPix, smem, cuda_stream>>>(
-      stream, ncols, starts, order, grid_x, chunk, downscale, acc_out, t_out,
+                   cudaStream_t st) {
+  const bool vec = gpcr::rows_vectorizable(stream, ncols);
+  size_t floats = (size_t)2 * chunk * ncols;
+  if (downscale == 2 && floats < (size_t)kPix * (C + 1))
+    floats = (size_t)kPix * (C + 1);
+  const size_t mask_off = floats * sizeof(float);
+  const size_t smem = mask_off + (size_t)chunk;
+  // rows of a multiple of 16 B sit 16-byte aligned in shared memory
+  auto kernel = ncols % 4 == 0 ? stream_blend_kernel<C, true>
+                               : stream_blend_kernel<C, false>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_order, kPix, smem, st>>>(stream, ncols, starts, order, grid_x,
+                                      chunk, downscale, vec, mask_off,
+                                      acc_out, t_out);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_contrib(const float* stream, int ncols, const int* starts,
+                           const int* order, int n_order, int grid_x,
+                           int chunk, float* acc_out, float* t_out,
+                           int* n_contrib_out, cudaStream_t st) {
+  const size_t smem = (size_t)chunk * ncols * sizeof(float);
+  const cudaError_t err =
+      allow_smem(stream_blend_contrib_kernel<C, true>, smem);
+  if (err != cudaSuccess) return err;
+  stream_blend_contrib_kernel<C, true><<<n_order, kPix, smem, st>>>(
+      stream, ncols, starts, order, grid_x, chunk, 1, acc_out, t_out,
       n_contrib_out);
   return cudaGetLastError();
 }
 
-template <bool kContrib>
-int dispatch(const float* stream, int ncols, const int* starts,
-             const int* order, int n_order, int grid_x, int channels,
-             int chunk, int downscale, float* acc_out, float* t_out,
-             int* n_contrib_out, void* cuda_stream) {
-  if (n_order <= 0) return (int)cudaSuccess;
-  if (chunk <= 0 || ncols < 8 + channels || (downscale != 1 && downscale != 2))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)cuda_stream;
-#define GPCR_CASE(NC)                                                      \
-  case NC:                                                                 \
-    return (int)launch<NC, kContrib>(stream, ncols, starts, order, n_order, \
-                                     grid_x, chunk, downscale, acc_out,    \
-                                     t_out, n_contrib_out, st);
-  switch (channels) {
-    GPCR_CASE(1) GPCR_CASE(2) GPCR_CASE(3) GPCR_CASE(4) GPCR_CASE(5)
-    GPCR_CASE(6) GPCR_CASE(7) GPCR_CASE(8) GPCR_CASE(9) GPCR_CASE(10)
-    GPCR_CASE(11) GPCR_CASE(12) GPCR_CASE(13) GPCR_CASE(14) GPCR_CASE(15)
-    GPCR_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
+#define GPCR_CHANNEL_SWITCH(CALL)                                       \
+  switch (channels) {                                                  \
+    case 1: return (int)CALL(1); case 2: return (int)CALL(2);          \
+    case 3: return (int)CALL(3); case 4: return (int)CALL(4);          \
+    case 5: return (int)CALL(5); case 6: return (int)CALL(6);          \
+    case 7: return (int)CALL(7); case 8: return (int)CALL(8);          \
+    case 9: return (int)CALL(9); case 10: return (int)CALL(10);        \
+    case 11: return (int)CALL(11); case 12: return (int)CALL(12);      \
+    case 13: return (int)CALL(13); case 14: return (int)CALL(14);      \
+    case 15: return (int)CALL(15); case 16: return (int)CALL(16);      \
+    default: return (int)cudaErrorInvalidValue;                        \
   }
-#undef GPCR_CASE
-}
 
 }  // namespace
 
@@ -210,9 +429,15 @@ int gpcr_stream_blend(const float* stream, int ncols, const int* starts,
                       const int* order, int n_order, int grid_x, int channels,
                       int chunk, int downscale, float* acc_out, float* t_out,
                       void* cuda_stream) {
-  return dispatch<false>(stream, ncols, starts, order, n_order, grid_x,
-                         channels, chunk, downscale, acc_out, t_out, nullptr,
-                         cuda_stream);
+  if (n_order <= 0) return (int)cudaSuccess;
+  if (chunk <= 0 || ncols < 8 + channels || (downscale != 1 && downscale != 2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)cuda_stream;
+#define GPCR_SERVE(NC)                                                      \
+  launch<NC>(stream, ncols, starts, order, n_order, grid_x, chunk, downscale, \
+             acc_out, t_out, st)
+  GPCR_CHANNEL_SWITCH(GPCR_SERVE)
+#undef GPCR_SERVE
 }
 
 // The training forward: native resolution, plus n_contrib_out
@@ -223,9 +448,14 @@ int gpcr_stream_blend_contrib(const float* stream, int ncols,
                               float* acc_out, float* t_out, int* n_contrib_out,
                               void* cuda_stream) {
   if (n_contrib_out == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(stream, ncols, starts, order, n_order, grid_x,
-                        channels, chunk, 1, acc_out, t_out, n_contrib_out,
-                        cuda_stream);
+  if (n_order <= 0) return (int)cudaSuccess;
+  if (chunk <= 0 || ncols < 8 + channels) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)cuda_stream;
+#define GPCR_COUNT(NC)                                                   \
+  launch_contrib<NC>(stream, ncols, starts, order, n_order, grid_x, chunk, \
+                     acc_out, t_out, n_contrib_out, st)
+  GPCR_CHANNEL_SWITCH(GPCR_COUNT)
+#undef GPCR_COUNT
 }
 
 const char* gpcr_cuda_error_string(int code) {
@@ -233,3 +463,5 @@ const char* gpcr_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+
+GPCR_DIAG_SETTER(gpcr_stream_blend_set_diag)

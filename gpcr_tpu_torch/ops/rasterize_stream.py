@@ -21,8 +21,10 @@ Pallas kernel):
 
 The blend (``blend_tiles``) launches the CUDA kernel
 ``csrc/stream_blend.cu`` for CUDA tensors and runs ``blend_tiles_plain``
-for CPU tensors. It never falls back: a CUDA run that cannot build or
-launch the kernel raises. With ``with_contrib`` (the training forward,
+for CPU tensors. The serving kernel skips, per warp of 8x4 pixels, the
+entries whose alpha cannot reach the warp's pixels; ``block_mask_plain``
+is that predicate in plain PyTorch. It never falls back: a CUDA run that
+cannot build or launch the kernel raises. With ``with_contrib`` (the training forward,
 ``ops/rasterize_stream_vjp.py``) both also return the per-pixel
 contributor count the replay backward needs.
 """
@@ -278,6 +280,38 @@ def blend_tiles_plain(
     t_d = t_all.reshape(num_tiles, ty // 2, 2, tx // 2, 2)
     return (acc_d.mean(dim=(2, 4)).reshape(num_tiles, p // 4, channels),
             t_d.mean(dim=(2, 4)).reshape(num_tiles, p // 4))
+
+
+def block_mask_plain(rows: torch.Tensor, x0: float, y0: float) -> torch.Tensor:
+    """The serving blend kernel's cull predicate (``block_mask`` in
+    ``csrc/stream_blend.cu``), op for op in float32: for stream rows
+    (n, >= 6) and a tile at pixel origin (x0, y0), (n, 8) bool, True where
+    the entry's alpha may reach >= 1/255 somewhere in the 8x4 pixel block
+    at (x0 + (w % 2) * 8, y0 + (w // 2) * 4) (warp w of the kernel). A
+    False pair is one the plain version skips (power > 0 or alpha < 1/255
+    at every pixel of the block); the kernel's warp walks only True
+    ones."""
+    mx, my, a, b, c, op = rows[:, :6].to(torch.float32).unbind(1)
+    det = a * c - b * b
+    regular = ((a > 0) & (c > 0) & (det > 1e-3 * (a * c))
+               & (mx.abs() < 1e30) & (my.abs() < 1e30) & ~torch.isnan(op))
+    hdif = 0.5 * (a - c)
+    lmax = 0.5 * (a + c) + torch.sqrt(hdif * hdif + b * b)
+    shrink = 1.0 - 1e-5 * ((torch.maximum(a, c) + b.abs()) * lmax / det)
+    tau = torch.log(255.0 * op)
+    tau_eff = (tau + 1e-5 * tau.abs() + 2e-5) / shrink
+    hx = (torch.sqrt(2.0 * tau_eff * c / det) * 1.001 + 0.05)[:, None]
+    hy = (torch.sqrt(2.0 * tau_eff * a / det) * 1.001 + 0.05)[:, None]
+    w = torch.arange(8, device=rows.device)
+    bx = (x0 + (w % 2) * 8).to(torch.float32)[None]
+    by = (y0 + (w // 2) * 4).to(torch.float32)[None]
+    mx, my = mx[:, None], my[:, None]
+    hit = ((mx - hx <= bx + 7.0) & (mx + hx >= bx)
+           & (my - hy <= by + 3.0) & (my + hy >= by))
+    hit = hit & ~(tau_eff < 0)[:, None]
+    culls = (regular & (op > 0) & (shrink > 0.5))[:, None]
+    every = (~regular | ((op > 0) & ~(shrink > 0.5)))[:, None]
+    return torch.where(culls, hit, every.expand_as(hit))
 
 
 def check_blend_inputs(stream, starts, order, num_tiles, channels,

@@ -8,8 +8,9 @@ handles ``preprocess`` (EWA projection, SH, quaternions) on both sides:
 - forward: ``bin_sorted_stream`` -> ``blend_tiles(with_contrib=True)``
   (``csrc/stream_blend.cu``) -> ``acc + T * bg``; the stream, the final
   transmittance and the per-pixel contributor count are kept;
-- backward: ``blend_tiles_bwd`` (``csrc/stream_blend_bwd.cu``) walks each
-  rendered tile's range back to front and writes one gradient row per
+- backward: ``blend_tiles_bwd`` (``csrc/stream_blend_bwd.cu``) splits
+  each rendered tile's range into segments (``segment_plan``), walks each
+  back to front from its segment factors and writes one gradient row per
   entry, ``[dmean2d(2), dconic(3), dopacity, 0, 0, dfeat(C)]``; the
   epilogue here adds entry rows into per-rank rows, permutes ranks back to
   the original gaussian order, and forms ``d bg = sum T * g_out``.
@@ -192,12 +193,17 @@ def _blend_tiles_bwd_cuda(stream, starts, order, dl_dout, n_contrib, dt_tot,
     if order.numel() == 0 or stream.shape[0] == 0:
         return grads
     lib = _stream_blend_bwd_lib()
+    seg_len = lib.gpcr_bwd_segment_length(config.chunk_size)
+    plan, n_seg_bound = segment_plan(starts, order, n_contrib, seg_len,
+                                     stream.shape[0])
+    scratch = torch.empty((n_seg_bound, 2, 256), dtype=torch.float32,
+                          device=dev)
     rc = lib.gpcr_stream_blend_bwd(
         stream.data_ptr(), stream.shape[1], starts.data_ptr(),
         order.data_ptr(), order.numel(), grid_x, channels, config.chunk_size,
         dl_dout.data_ptr(), n_contrib.data_ptr(), dt_tot.data_ptr(),
-        t_final.data_ptr(), grads.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        t_final.data_ptr(), grads.data_ptr(), plan.data_ptr(), n_seg_bound,
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         msg = lib.gpcr_bwd_cuda_error_string(rc).decode()
@@ -206,13 +212,35 @@ def _blend_tiles_bwd_cuda(stream, starts, order, dl_dout, n_contrib, dt_tot,
     return grads
 
 
+def segment_plan(starts, order, n_contrib, seg_len: int, n_entries: int):
+    """How the replay-backward kernel splits the rendered tiles into
+    segments of ``seg_len`` entries: (plan (2, G) int32, n_seg_bound).
+
+    plan[1] is each ordered tile's walked range lim = min(range, max
+    n_contrib over its pixels) (entries past it have a == 0 at every
+    pixel); plan[0] the inclusive prefix sum of ceil(lim / seg_len), so
+    segment b belongs to the first tile whose plan[0] exceeds b.
+    n_seg_bound = ceil(n_entries / seg_len) + G is at least the number of
+    segments (lim <= range and the ranges are disjoint), so the grid is
+    sized without reading plan back to the host."""
+    o = order.long()
+    lim = torch.minimum((starts[1:] - starts[:-1])[o],
+                        n_contrib[o].amax(dim=1))
+    nseg = (lim + seg_len - 1) // seg_len
+    plan = torch.stack([torch.cumsum(nseg, 0), lim.long()])
+    return (plan.to(torch.int32).contiguous(),
+            -(-n_entries // seg_len) + order.numel())
+
+
 def _stream_blend_bwd_lib():
     lib = cuda_build.load("stream_blend_bwd")
     if not getattr(lib, "_gpcr_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gpcr_stream_blend_bwd.argtypes = [
-            vp, ci, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+            vp, ci, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp]
         lib.gpcr_stream_blend_bwd.restype = ci
+        lib.gpcr_bwd_segment_length.argtypes = [ci]
+        lib.gpcr_bwd_segment_length.restype = ci
         lib.gpcr_bwd_cuda_error_string.argtypes = [ci]
         lib.gpcr_bwd_cuda_error_string.restype = ctypes.c_char_p
         lib._gpcr_typed = True

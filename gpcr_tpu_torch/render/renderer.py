@@ -437,7 +437,7 @@ class PCMLRender:
         scale_factor: T.Optional[int] = None, offset: int = 512,
         info: T.Optional[dict] = None, params=None,
         config: R.RasterizeConfig = R.RasterizeConfig(),
-        warm_timing: bool = False, device="cpu",
+        warm_timing: bool = False, device="cuda",
         generator: T.Optional[torch.Generator] = None,
     ):
         if ckpt is not None:

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card (``gpu`` marker): the stream
-blend, its contributor-count instantiation, the replay backward and the
-aligned all-tiles blend.
+"""The port's CUDA kernels on the card (``gpu`` marker): the serving
+stream blend (with its warp-level culling), the contributor-count
+forward, the replay backward (tiles split into segments) and the aligned
+all-tiles blend.
 
 Each test skips without a CUDA device; the decision is taken inside the
 ``cuda`` fixture, never at import. The file imports no JAX, so it also
@@ -29,6 +30,8 @@ from gpcr_tpu_torch.ops import rasterize_aligned as TRA
 from gpcr_tpu_torch.ops import rasterize_stream as TRS
 from gpcr_tpu_torch.ops import rasterize_stream_vjp as TV
 from gpcr_tpu_torch.render.renderer import pin_fp32
+
+from torch_streams import tile_stream
 
 pin_fp32()  # parity precision: full-float32 matmuls, no TF32 on a card
 
@@ -114,6 +117,48 @@ def test_cuda_kernel_matches_plain(cuda, downscale, channels,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("downscale", [1, 2])
+@pytest.mark.parametrize("scene", ["overdrawn", "block_edges", "faint"])
+@pytest.mark.parametrize("channels", [3, 9, 12])
+def test_serving_kernel_culls_only_skipped_pairs(cuda, channels, scene,
+                                                  downscale):
+    """The serving kernel's warp-level culling on streams built to test
+    it: over-drawn tiles (wide, nearly opaque splats: pixels stop in the
+    middle of a chunk), means on the 8x4 warp-block edges, and opacities
+    a hair above 1/255. The output is the plain version's."""
+    kw = {"overdrawn": dict(sigma=(3.0, 10.0), opaque=0.8),
+          "block_edges": dict(sigma=(0.4, 3.0), edges=True),
+          "faint": dict(sigma=(0.5, 8.0), faint=True, edges=True)}[scene]
+    counts = [0, 1, 37, 300, 700, 1500]
+    stream, starts = tile_stream(counts, seed=channels, channels=channels,
+                                 **kw)
+    stream, starts = stream.to(cuda), starts.to(cuda)
+    nt, gx = len(counts), 3
+    order = torch.argsort(-(starts[1:] - starts[:-1]), stable=True).to(
+        torch.int32)
+    config = TR.RasterizeConfig(chunk_size=64, downscale=downscale)
+    before = TRS.LAUNCHES
+    acc, t = TRS.blend_tiles(stream, starts, order, nt, gx, channels, config)
+    torch.cuda.synchronize()
+    assert TRS.LAUNCHES == before + 1
+    acc_p, t_p = TRS.blend_tiles_plain(stream, starts, order, nt, gx,
+                                       channels, config)
+    for got, ref in ((acc, acc_p), (t, t_p)):
+        err = (got - ref).abs()
+        assert float(err.max()) <= 1e-4 and float(err.mean()) <= 1e-6
+    if scene == "overdrawn":
+        _, _, cnt = TRS.blend_tiles_plain(
+            stream, starts, order, nt, gx, channels,
+            config._replace(downscale=1), with_contrib=True)
+        stopped = cnt < (starts[1:] - starts[:-1])[:, None]
+        assert float(stopped[3:].float().mean()) > 0.5
+        assert bool((cnt[3:] % 64 != 0).any())  # mid-chunk
+    # the predicate culls something on these streams
+    rows = stream[int(starts[5]):int(starts[6])].cpu()
+    assert not bool(TRS.block_mask_plain(rows, 32.0, 16.0).all())
+
+
+@pytest.mark.gpu
 def test_refused_launch_raises(cuda):
     """A launch the card refuses (here: more shared memory than an SM
     has) raises instead of returning the untouched outputs."""
@@ -185,6 +230,56 @@ def test_cuda_training_kernels_match_plain(cuda, channels, max_active_tiles):
         s, e = starts[:-1][skipped], starts[1:][skipped]
         for a, b in zip(s.tolist(), e.tolist()):
             assert not bool(rows[a:b].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", [3, 9, 12])
+def test_replay_backward_segments_match_plain(cuda, channels):
+    """Tile ranges around the replay kernel's segment length (chunk 64:
+    segments of 128 entries): 0, 1, 127, 128, 129, 256, 257 and 1,000
+    entries; over-drawn, so pixels stop in the first segment and later.
+    Rows within the replay limits of the plain version, bit-equal on two
+    launches, zero past each tile's walked range; the count forward's
+    counts and outputs equal the plain version's."""
+    counts = [0, 1, 127, 128, 129, 256, 257, 1000, 300]
+    stream, starts = tile_stream(counts, seed=10 + channels,
+                                 channels=channels, sigma=(2.0, 8.0))
+    stream, starts = stream.to(cuda), starts.to(cuda)
+    nt, gx = len(counts), 3
+    order = torch.argsort(-(starts[1:] - starts[:-1]), stable=True).to(
+        torch.int32)
+    config = TR.RasterizeConfig(chunk_size=64)
+    args = (stream, starts, order, nt, gx, channels, config)
+    acc, t, cnt = TRS.blend_tiles(*args, with_contrib=True)
+    acc_p, t_p, cnt_p = TRS.blend_tiles_plain(*args, with_contrib=True)
+    assert torch.equal(cnt, cnt_p)
+    for got, ref in ((acc, acc_p), (t, t_p)):
+        err = (got - ref).abs()
+        assert float(err.max()) <= 1e-4 and float(err.mean()) <= 1e-6
+    lens = (starts[1:] - starts[:-1])[:, None]
+    assert bool(((cnt > 0) & (cnt < 128)).any()) and bool((cnt == lens).any())
+    g = torch.Generator().manual_seed(channels)
+    dl_dout = torch.randn(nt, 256, channels, generator=g).to(cuda)
+    dt_tot = torch.randn(nt, 256, generator=g).to(cuda)
+    bargs = (stream, starts, order, dl_dout, cnt, dt_tot, t, gx, channels,
+             config)
+    before = TV.LAUNCHES_BWD
+    rows = TV.blend_tiles_bwd(*bargs)
+    again = TV.blend_tiles_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert TV.LAUNCHES_BWD == before + 2
+    assert torch.equal(rows, again)
+    rows_p = TV.blend_tiles_bwd_plain(*bargs)
+    col_err = (rows - rows_p).abs().amax(dim=0)
+    assert bool((col_err <= 1e-4 * rows_p.abs().amax(dim=0) + 1e-6).all()), (
+        col_err, rows_p.abs().amax(dim=0))
+    l2_err = torch.linalg.vector_norm((rows - rows_p).double(), dim=0)
+    l2_lim = 1e-5 * torch.linalg.vector_norm(rows_p.double(), dim=0) + 1e-6
+    assert bool((l2_err <= l2_lim).all()), (l2_err, l2_lim)
+    walked = torch.minimum(lens[:, 0], cnt.amax(dim=1))
+    for tile in range(nt):
+        s, e = int(starts[tile]), int(starts[tile + 1])
+        assert not bool(rows[s + int(walked[tile]):e].any())
 
 
 @pytest.mark.gpu

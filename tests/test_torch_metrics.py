@@ -8,6 +8,8 @@ convolutions deep); the directory scorers read the same PNG bytes and are
 held to the same limits.
 """
 
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from gpcr_tpu_torch.cli import convert_lpips as TCL
 from gpcr_tpu_torch.cli import pic_metrics as TPM
 from gpcr_tpu_torch.io import write_png
 from gpcr_tpu_torch.metrics import lpips as TL
+from gpcr_tpu_torch.render import renderer as TRD
 from gpcr_tpu_torch.render.checkpoint import lpips_from_jax_params
 
 
@@ -136,7 +139,8 @@ def test_dir_scorers_match_jax(tmp_path, capsys):
 
     ref = JPM.psnr_dirs(d1, d2, diff_dir=str(tmp_path / "jdiff"))
     j_out = capsys.readouterr().out
-    got = TPM.psnr_dirs(d1, d2, diff_dir=str(tmp_path / "tdiff"))
+    got = TPM.psnr_dirs(d1, d2, diff_dir=str(tmp_path / "tdiff"),
+                        device="cpu")
     t_out = capsys.readouterr().out
     assert abs(got - ref) <= 1e-5
     # the printed lines, the resize notice included; the last digits of the
@@ -151,12 +155,13 @@ def test_dir_scorers_match_jax(tmp_path, capsys):
         b = TPM.read_png(str(tmp_path / "jdiff" / name)).astype(int)
         assert np.abs(a - b).max() <= 1  # the resized pair rounds apart
 
-    assert abs(TPM.msssim_dirs(d1, d2) - JPM.msssim_dirs(d1, d2)) <= 1e-5
+    assert abs(TPM.msssim_dirs(d1, d2, device="cpu")
+               - JPM.msssim_dirs(d1, d2)) <= 1e-5
     capsys.readouterr()
 
     # no weights in the tree: the explicit skip and its message
     missing = str(tmp_path / "none.npz")
-    assert TPM.lpips_dirs(d1, d2, weights_path=missing) is None
+    assert TPM.lpips_dirs(d1, d2, weights_path=missing, device="cpu") is None
     out = capsys.readouterr().out
     assert "LPIPS SKIPPED" in out and "gpcr_tpu_torch.cli.convert_lpips" in out
     assert not TL.lpips_available(missing)
@@ -169,13 +174,24 @@ def test_dir_scorers_match_jax(tmp_path, capsys):
     assert TL.lpips_available(npz)
     for strict in (True, False):
         ref = JPM.lpips_dirs(d1, d2, strict_parity=strict, weights_path=npz)
-        got = TPM.lpips_dirs(d1, d2, strict_parity=strict, weights_path=npz)
+        got = TPM.lpips_dirs(d1, d2, strict_parity=strict, weights_path=npz,
+                             device="cpu")
         assert ref > 0 and abs(got - ref) <= 1e-4 * ref
     with pytest.raises(ValueError, match="convert_lpips_pth"):
         TL.LPIPS.load(pth)
 
-    assert TPM.main(["psnr", d1, d2, "--device", "cpu"]) == TPM.psnr_dirs(d1, d2)
+    assert TPM.main(["psnr", d1, d2, "--device", "cpu"]) == TPM.psnr_dirs(
+        d1, d2, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TPM.main(["msssim", d1, d2])
 
+
+@pytest.mark.parametrize("fn", [TPM._load_pairs, TPM.psnr_dirs,
+                                TPM.msssim_dirs, TPM.lpips_dirs,
+                                TRD.PCMLRender])
+def test_entry_points_default_to_the_card(fn):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: their ``device`` parameter defaults to ``cuda`` (read from
+    the signature, so this runs without a card)."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -71,7 +71,8 @@ def test_pcml_render_matches_jax():
     ref = jr.render(JPointCloud.from_numpy(xyz, rgb), scale=None, cam=jcam,
                     fov=60.0, background_color=0.0)
     tr = TRD.PCMLRender(info=info, voxelized=True, scale_factor=sf,
-                        params=jax.tree_util.tree_map(np.asarray, jr.params))
+                        params=jax.tree_util.tree_map(np.asarray, jr.params),
+                        device="cpu")
     timing = {}
     got = tr.render(PointCloud.from_numpy(xyz, rgb), scale=None, cam=tcam,
                     fov=60.0, background_color=0.0, timing=timing)
@@ -188,7 +189,8 @@ def test_profile_script_follows_the_renderer():
     info = dict(P.LEARNED_INFO, clr_encoder_channels=args.channels)
     rdr = TRD.PCMLRender(info=info, voxelized=True, scale_factor=448,
                          config=TB._raster_config(TB.build_parser().parse_args(
-                             ["pcrender", "--dup_cap", "256"])))
+                             ["pcrender", "--dup_cap", "256"])),
+                         device="cpu")
     xyz, rgb = P.synthetic_cloud(1000)
     cam = TRD.generate_cam({"fov": 45, "width_px": 32, "height_px": 32,
                             "mode": "circle", "n_imgs": 1, "d": 0, "r": 3,

@@ -187,3 +187,105 @@ def test_no_silent_device_switch(monkeypatch):
     monkeypatch.setattr(cuda_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.find_nvcc()
+
+
+# --------------------------------------------------------------------------
+# the serving kernel's cull predicate
+# --------------------------------------------------------------------------
+
+
+def _reach(rows, x0, y0):
+    """(n, 8) bool: some pixel of each 8x4 block of the tile at (x0, y0)
+    is not skipped by ``blend_tiles_plain``'s arithmetic (power <= 0 and
+    alpha >= 1/255)."""
+    p = torch.arange(256)
+    lx, ly = (p % 16).to(torch.float32), (p // 16).to(torch.float32)
+    dx = rows[:, 0:1] - (x0 + lx)[None]
+    dy = rows[:, 1:2] - (y0 + ly)[None]
+    power = (-0.5 * (rows[:, 2:3] * dx * dx + rows[:, 4:5] * dy * dy)
+             - rows[:, 3:4] * dx * dy)
+    alpha = torch.clamp(rows[:, 5:6] * torch.exp(power), max=0.99)
+    kept = ~(power > 0.0) & ~(alpha < (1.0 / 255.0))
+    block = (ly // 4).long() * 2 + (lx // 8).long()
+    return torch.stack([kept[:, block == w].any(dim=1) for w in range(8)], 1)
+
+
+def _adversarial_rows(seed, n=4000, x0=32.0, y0=48.0):
+    """Stream rows built to sit on the predicate's edges: thin rotated
+    conics (axis ratios up to 1e4), conics close to degenerate, opacities
+    a hair above and below 1/255 and near 1, means on and around the
+    tile's block edges, and rows no cull may touch (NaN, infinite or
+    non-positive values, indefinite conics)."""
+    rng = np.random.RandomState(seed)
+    sig1 = 10.0 ** rng.uniform(-0.5, 1.5, n)
+    sig2 = sig1 / 10.0 ** rng.uniform(0, 4, n)
+    th = rng.uniform(0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    cxx = cs * cs * sig1 ** 2 + sn * sn * sig2 ** 2
+    cyy = sn * sn * sig1 ** 2 + cs * cs * sig2 ** 2
+    cxy = cs * sn * (sig1 ** 2 - sig2 ** 2)
+    det = cxx * cyy - cxy * cxy
+    conic = np.stack([cyy / det, -cxy / det, cxx / det], 1)
+    kind = rng.randint(0, 4, n)
+    op = np.where(kind == 0, rng.uniform(0, 1, n),
+                  np.where(kind == 1, (1 + rng.uniform(-1e-3, 1e-3, n)) / 255,
+                           np.where(kind == 2, 1 - rng.uniform(0, 1e-2, n),
+                                    (1 + rng.uniform(0, 1e-6, n)) / 255)))
+    # means on block edges (+- a pixel) or anywhere around the tile
+    edge = np.stack([x0 + rng.choice([0, 7, 8, 15], n)
+                     + rng.uniform(-1.5, 1.5, n),
+                     y0 + rng.choice([0, 3, 4, 7, 8, 11, 12, 15], n)
+                     + rng.uniform(-1.5, 1.5, n)], 1)
+    wide = np.stack([x0 + rng.uniform(-40, 56, n),
+                     y0 + rng.uniform(-40, 56, n)], 1)
+    mean = np.where((rng.rand(n) < 0.5)[:, None], edge, wide)
+    rows = np.concatenate([mean, conic, op[:, None]], 1).astype(np.float32)
+    # near-degenerate: push b^2 towards a * c
+    k = n // 10
+    rows[:k, 3] = (np.sign(rng.randn(k)) * np.sqrt(rows[:k, 2] * rows[:k, 4])
+                   * (1 - 10.0 ** rng.uniform(-6, -1, k))).astype(np.float32)
+    special = np.array([
+        [x0 + 4, y0 + 2, 0.5, 0.0, 0.5, np.nan],
+        [np.nan, y0, 0.5, 0.0, 0.5, 0.9],
+        [x0, y0, np.inf, 0.0, 0.5, 0.9],
+        [x0 + 4, y0 + 2, 0.5, 0.0, 0.5, np.inf],
+        [x0 + 4, y0 + 2, 0.5, 0.0, 0.5, 0.0],
+        [x0 + 4, y0 + 2, 0.5, 0.0, 0.5, -0.3],
+        [x0 + 4, y0 + 2, -0.5, 0.0, 0.5, 0.9],
+        [x0 + 4, y0 + 2, 0.5, 0.9, 0.5, 0.9],
+        [x0 + 60, y0 + 2, 1e-8, 0.0, 1e-8, 0.9],
+    ], np.float32)
+    return torch.from_numpy(np.concatenate([rows, special]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cull_predicate_never_drops_a_kept_pair(seed):
+    """No (entry, block) pair that ``block_mask_plain`` culls holds a
+    pixel the plain version composites; on the adversarial rows and on a
+    preprocessed scene's stream the predicate still culls most pairs."""
+    x0, y0 = 32.0, 48.0
+    rows = _adversarial_rows(seed, x0=x0, y0=y0)
+    mask = TRS.block_mask_plain(rows, x0, y0)
+    reach = _reach(rows, x0, y0)
+    assert mask.shape == (rows.shape[0], 8)
+    assert not bool((reach & ~mask).any()), torch.nonzero(reach & ~mask)[:5]
+    assert bool(reach.any()) and float((~mask).float().mean()) > 0.3
+    special = mask[-9:]  # NaN / inf / indefinite keep every block ...
+    assert bool(special[[0, 1, 2, 3, 6, 7]].all())
+    assert not bool(special[[4, 5]].any())  # ... op <= 0 none
+    assert bool(special[8].all())  # a huge splat reaches every block
+
+    a, _, ts = scene(seed=seed)
+    _, tcfg = _configs(max_dup_per_gaussian=16, chunk_size=64,
+                       opacity_radius=True)
+    prep = TR.preprocess(torch.from_numpy(a["means"]),
+                         torch.from_numpy(a["op"]), ts, tcfg, **_torch_args(a))
+    stream, starts, _ = TRS.bin_sorted_stream(prep, 16, 4, tcfg)
+    culled = 0
+    for tile in range(16):
+        s, e = int(starts[tile]), int(starts[tile + 1])
+        tx, ty = float(tile % 4 * 16), float(tile // 4 * 16)
+        m = TRS.block_mask_plain(stream[s:e], tx, ty)
+        assert not bool((_reach(stream[s:e], tx, ty) & ~m).any())
+        culled += int((~m).sum())
+    assert culled > 0.3 * 8 * int(starts[-1])

@@ -34,6 +34,7 @@ from gpcr_tpu_torch.ops import rasterize_stream_vjp as TV
 from gpcr_tpu_torch.render.renderer import pin_fp32
 
 from test_rasterize import make_camera_matrices, random_scene
+from torch_streams import tile_stream
 
 pin_fp32()
 
@@ -338,3 +339,127 @@ def test_live_pair_count_matches_a_sequential_walk():
     np.testing.assert_array_equal(cnt.numpy(), want_cnt)
     np.testing.assert_array_equal(live.numpy(), want_live)
     assert 0 < int(live.sum()) < int(cnt.sum())
+
+
+# --------------------------------------------------------------------------
+# the replay-backward kernel's segment decomposition
+# --------------------------------------------------------------------------
+
+
+def _segmented_bwd(stream, starts, order, dl_dout, n_contrib, dt_tot,
+                   t_final, grid_x, channels, seg_len):
+    """The replay backward as ``csrc/stream_blend_bwd.cu`` computes it, in
+    float32: ``segment_plan``'s segments; per segment and pixel P_k (the
+    product of 1 - a) and S_k (the sum of a * t * G) in a front-to-back
+    pass; T_end(k) and B_end(k) by a scan over the tile's segments; then
+    each segment walked back to front from (T_end, B_end), entry by
+    entry."""
+    plan, bound = TV.segment_plan(starts, order, n_contrib, seg_len,
+                                  stream.shape[0])
+    assert int(plan[0, -1]) <= bound
+    grads = torch.zeros_like(stream)
+    pix = torch.arange(256)
+    lx, ly = (pix % 16).to(torch.float32), (pix // 16).to(torch.float32)
+    c0 = TRS.STREAM_FEAT_COL
+    for g, tile in enumerate(order.tolist()):
+        lim = int(plan[1, g])
+        nseg = int(plan[0, g]) - (int(plan[0, g - 1]) if g else 0)
+        assert nseg == -(-lim // seg_len)
+        if lim == 0:
+            continue
+        s = int(starts[tile])
+        rows = stream[s:s + lim]
+        dx = rows[:, 0:1] - (float(tile % grid_x * 16) + lx)[None]
+        dy = rows[:, 1:2] - (float(tile // grid_x * 16) + ly)[None]
+        power = (-0.5 * (rows[:, 2:3] * dx * dx + rows[:, 4:5] * dy * dy)
+                 - rows[:, 3:4] * dx * dy)
+        gauss = torch.exp(power)
+        raw = rows[:, 5:6] * gauss
+        alpha = torch.clamp(raw, max=0.99)
+        live = (~(power > 0.0) & ~(alpha < 1.0 / 255.0)
+                & (torch.arange(lim)[:, None] < n_contrib[tile][None].long()))
+        a = torch.where(live, alpha, torch.zeros_like(alpha))
+        dL = dl_dout[tile]
+        G = rows[:, c0:c0 + channels] @ dL.T  # (lim, 256)
+        segs = [range(k * seg_len, min((k + 1) * seg_len, lim))
+                for k in range(nseg)]
+        P, S = [], []
+        for seg in segs:
+            t, sk = torch.ones(256), torch.zeros(256)
+            for i in seg:
+                sk = torch.where(live[i], sk + a[i] * t * G[i], sk)
+                t = torch.where(live[i], t * (1.0 - a[i]), t)
+            P.append(t)
+            S.append(sk)
+        T_end, T = [], torch.ones(256)
+        for p in P:
+            T = T * p
+            T_end.append(T)
+        B_end, B = [None] * nseg, t_final[tile] * dt_tot[tile]
+        for k in range(nseg - 1, -1, -1):
+            B_end[k] = B
+            B = B + (T_end[k - 1] if k else 1.0) * S[k]
+        for k, seg in enumerate(segs):
+            T_after, B = T_end[k], B_end[k]
+            for i in reversed(seg):
+                r_om = 1.0 / (1.0 - a[i])
+                T_excl = T_after * r_om
+                w = a[i] * T_excl
+                dL_da = T_excl * G[i] - B * r_om
+                free = live[i] & (raw[i] < 0.99)
+                zero = torch.zeros(256)
+                dpow = torch.where(free, dL_da * a[i], zero)
+                r = rows[i]
+                grads[s + i, 0] = torch.sum(
+                    -dpow * (r[2] * dx[i] + r[3] * dy[i]))
+                grads[s + i, 1] = torch.sum(
+                    -dpow * (r[4] * dy[i] + r[3] * dx[i]))
+                grads[s + i, 2] = torch.sum(-0.5 * dpow * dx[i] * dx[i])
+                grads[s + i, 3] = torch.sum(-dpow * dx[i] * dy[i])
+                grads[s + i, 4] = torch.sum(-0.5 * dpow * dy[i] * dy[i])
+                grads[s + i, 5] = torch.sum(torch.where(free, dL_da * gauss[i],
+                                                        zero))
+                grads[s + i, c0:c0 + channels] = (
+                    torch.where(live[i], w, zero)[:, None] * dL).sum(0)
+                B = torch.where(live[i], B + w * G[i], B)
+                T_after = torch.where(live[i], T_excl, T_after)
+    return grads
+
+
+@pytest.mark.parametrize("seg_len", [7, 16])
+def test_segmented_backward_matches_plain(seg_len):
+    """Segments of 7 and 16 entries that do not divide the tile ranges;
+    tiles of 0, 1, L and L + 1 entries and longer ones; pixels that stop
+    in the first segment and pixels forced to n_contrib = 0; against
+    ``blend_tiles_bwd_plain`` at the replay kernel's limits (per column
+    1e-4 * max|plain| + 1e-6, in L2 1e-5 * ||plain|| + 1e-6)."""
+    counts = [0, 1, seg_len, seg_len + 1, 3 * seg_len + 2, 5 * seg_len - 1]
+    channels, grid_x, nt = 3, 3, len(counts)
+    stream, starts = tile_stream(counts, seed=seg_len, channels=channels)
+    tcfg = TR.RasterizeConfig(chunk_size=8, differentiable=True)
+    order = torch.argsort(-(starts[1:] - starts[:-1]), stable=True).to(
+        torch.int32)
+    _, t_run, cnt = TRS.blend_tiles_plain(stream, starts, order, nt, grid_x,
+                                          channels, tcfg, with_contrib=True)
+    counts_t = (starts[1:] - starts[:-1])[:, None]
+    assert bool(((cnt > 0) & (cnt < seg_len)).any())  # stop in segment 0
+    assert bool((cnt == counts_t).any())  # and some never stop
+    cnt = cnt.clone()
+    cnt[4, ::7] = 0
+    rng = np.random.RandomState(seg_len)
+    dl_dout = torch.from_numpy(rng.randn(nt, 256, channels).astype(np.float32))
+    dt_tot = torch.from_numpy(rng.randn(nt, 256).astype(np.float32))
+    args = (stream, starts, order, dl_dout, cnt, dt_tot, t_run, grid_x,
+            channels)
+    got = _segmented_bwd(*args, seg_len)
+    want = TV.blend_tiles_bwd_plain(*args, tcfg)
+    col_err = (got - want).abs().amax(dim=0)
+    assert bool((col_err <= 1e-4 * want.abs().amax(dim=0) + 1e-6).all()), (
+        col_err, want.abs().amax(dim=0))
+    l2 = torch.linalg.vector_norm((got - want).double(), dim=0)
+    assert bool((l2 <= 1e-5 * torch.linalg.vector_norm(want.double(), dim=0)
+                 + 1e-6).all())
+    used = [0, 1, 2, 3, 4, 5, 8, 9, 10]
+    assert float(want[:, used].abs().amax(dim=0).min()) > 0
+    plan, _ = TV.segment_plan(starts, order, cnt, seg_len, stream.shape[0])
+    assert plan.dtype == torch.int32 and plan.shape == (2, nt)
