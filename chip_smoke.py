@@ -11,7 +11,9 @@ Phases, each printing what it found:
 2. build: compiles ``gpcr_tpu_torch/csrc/stream_blend.cu``,
    ``stream_blend_bwd.cu`` and ``aligned_blend.cu`` with nvcc for sm_90a
    (all compilers started together) into ``gpcr_tpu_torch/build/`` and
-   prints ptxas' registers, shared memory and spills for C = 3, 9 and 12;
+   prints ptxas' registers, shared memory and spills for C = 3, 9 and 12,
+   and the stages and shared memory of the chunk rings of the count
+   forward and the aligned blend at their main-path shapes;
 3. kernel vs plain: on seeded ~20K-gaussian scenes (512² and 1024², 9 and
    12 channels) the CUDA blend kernel against its plain PyTorch version
    (downscale 1 and 2, all tiles and a covering tile budget; limits
@@ -40,7 +42,8 @@ Phases, each printing what it found:
    route's float images of the same run) and view 0 of the learned cell's
    splats (finite, against the stream route); its launch counter is reset
    just before and must grow. The aligned kernel is then timed against
-   its plain version at the learned view-0 shape;
+   its plain version at the learned view-0 shape, beside that layout's
+   chunks per tile and chunks walked (``[tile-work]``);
 7. scored run: a textured stretched-sphere mesh made from a seed is
    written as OBJ and sampled to a ~800K-point cloud at scale factor 448;
    the ``simple`` and ``pcrender`` CLI tasks (the latter at the deployed
@@ -162,6 +165,20 @@ def phase_build():
                     f"ILi{c}E" in line for c in (3, 9, 12)):
                 for shown in lines[i:i + 4]:
                     log(f"[build] {name}: " + shown.strip())
+    # the chunk rings of the count forward and the aligned blend at their
+    # main-path shapes (stages, dynamic shared memory per CTA)
+    from gpcr_tpu_torch.ops import rasterize_aligned as RA
+    from gpcr_tpu_torch.ops import rasterize_stream as RS
+
+    for tag, (stages, smem) in (
+            ("count forward, training (C=12, chunk 64)",
+             RS.count_ring_stages(20, 64)),
+            ("count forward, 800K analytic (C=3, chunk 128)",
+             RS.count_ring_stages(11, 128)),
+            ("aligned blend, learned (C=12, chunk 256)",
+             RA.aligned_ring_stages(12, 256))):
+        log(f"[build] ring of the {tag}: {stages} stages, {smem} bytes of "
+            "shared memory per CTA")
 
 
 def _scene(torch, n, res, channels, seed, dev, overdraw=False):
@@ -609,7 +626,8 @@ def _pairs(torch, stream, starts, order, nt, gx, channels, config):
 
 def phase_timing(torch, sp):
     """Kernel 1 at the learned view-0 shape; also returns the (walked,
-    live) pair counts of that stream and its number of entries."""
+    live) pair counts of that stream, its number of entries, and its
+    contributor count and entries per tile."""
     from gpcr_tpu_torch.utils.blend_inputs import view0_stream
     from gpcr_tpu_torch.ops import rasterize_stream as RS
 
@@ -637,8 +655,9 @@ def phase_timing(torch, sp):
         f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (CUDA events); "
         f"max|d|={mx:.3e} mean|d|={mean:.3e}; {pairs[0]} (entry, pixel) "
         f"pairs walked, {pairs[1]} of them live, bound {bound_ms:.4f} ms by {bound_by}")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=mx, bound_ms=bound_ms,
-                bound_by=bound_by), pairs, stream.shape[0]
+    return (dict(ms=ms, plain_ms=plain_ms, max_abs_err=mx, bound_ms=bound_ms,
+                 bound_by=bound_by), pairs, stream.shape[0],
+            (cnt, starts[1:] - starts[:-1]))
 
 
 # --------------------------------------------------------------------------
@@ -743,12 +762,14 @@ def phase_aligned_route(torch, B, RA, sp):
     return launches
 
 
-def phase_timing_aligned(torch, sp, pairs, entries):
+def phase_timing_aligned(torch, sp, pairs, entries, work):
     """Kernel 4 at the learned view-0 shape (the same entries as kernel 1's
     timing, full-size output), in turns plain / kernel / kernel / plain.
     ``pairs`` are kernel 1's (walked, live) counts on these ``entries``:
-    the walk is the same, and padding slots are no work the data needs."""
-    from gpcr_tpu_torch.utils.blend_inputs import view0_prep
+    the walk is the same, and padding slots are no work the data needs;
+    ``work`` is the contributor count and the entries per tile of the same
+    stream, for the layout's ``[tile-work]`` line."""
+    from gpcr_tpu_torch.utils.blend_inputs import aligned_work, view0_prep
     from gpcr_tpu_torch.ops import rasterize_aligned as RA
 
     prep, channels, res = view0_prep(sp)
@@ -759,6 +780,13 @@ def phase_timing_aligned(torch, sp, pairs, entries):
     check(mx <= MAX_ERR and mean <= MEAN_ERR, "aligned kernel disagrees with "
           f"plain at the learned view-0 shape: {mx} / {mean}")
     cstarts, scal, feat = args[:3]
+    w = aligned_work(cstarts, *work, config.chunk_size)
+    d = " / ".join(f"{w[k]['max']} / {w[k]['p99']:.0f} / {w[k]['median']:.0f}"
+                   for k in ("chunks", "walked_chunks"))
+    log(f"[tile-work] aligned learned view 0: {w['tiles']} non-empty tiles, "
+        f"{w['empty_tiles']} empty (launched last); chunks per tile and "
+        f"walked per tile (max / p99 / median) {d}; {w['stopped_share']:.3f} "
+        "of the walked (slot, pixel) pairs belong to pixels already stopped")
     slots = scal.shape[0] * scal.shape[2]
     # bytes as the layout holds them: every slot's 6 + C floats and the
     # chunk starts read once, acc and T of every tile written once
@@ -1193,9 +1221,11 @@ def main() -> int:
         launches, timing, peak, ckpt = run(phase_learned, torch, B, RS)
         run(phase_learned_small, torch)
         splats = _learned_splats(torch, ckpt)
-        serve, pairs, entries = run(phase_timing, torch, splats)
+        serve, pairs, entries, work = run(phase_timing, torch, splats)
         aligned_launches = run(phase_aligned_route, torch, B, RA, splats)
-        aligned = run(phase_timing_aligned, torch, splats, pairs, entries)
+        aligned = run(phase_timing_aligned, torch, splats, pairs, entries,
+                      work)
+        del work
         del splats
         run(phase_scored, torch, B, RS, ckpt)
         run(phase_grad_small, torch)

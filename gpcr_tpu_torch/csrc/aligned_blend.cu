@@ -25,104 +25,135 @@
 // Design. What the TPU kernel does for its hardware is not carried over: the
 // log-space shift-add cumsum along lanes, the (P, CH) x (Cpad, CH) matrix
 // product, the channel padding to 8 and the 8-row T block serve the MXU and
-// Mosaic's tiling. Here: one CTA per tile over all tiles, one thread per
-// pixel (256). Per chunk the CTA copies the scalar block and the feature
-// block into shared memory with coalesced loads (both are contiguous in
-// device memory, 6 * CH and C * CH floats), then every thread walks the CH
-// slots sequentially with T and the C accumulators in registers; the reads
-// of a slot from shared memory are broadcasts. The block leaves the walk as
-// soon as every pixel is done (__syncthreads_count), as the TPU kernel skips
-// a chunk once no pixel is alive.
+// Mosaic's tiling. The first version here had one CTA per tile id,
+// one thread per pixel, plain staging copies and two CTA barriers per chunk,
+// every pixel testing every slot: 1.73 ms at the learned view 0, 14x its
+// bound, its longest CTA (36 chunks) 76% of the kernel while 2,797 of the
+// 4,096 CTAs were empty tiles. Redesign, for Hopper, the count forward's
+// (stream_blend.cu) on the planar layout:
+// - one CTA of gpcr::kRingThreads per tile, tiles launched in the order the
+//   wrapper gives (rasterize_aligned.aligned_order: descending chunk count,
+//   empty tiles last; their CTAs only write acc 0 and T 1);
+// - warps on 8x4 pixel blocks cull each 32-slot group against their block
+//   (gpcr::block_mask on the six scalars of a slot, computed once per chunk
+//   by the first warp to reach it; a zero slot padding a tile's last chunk
+//   reaches no block: PlanarView::mask) and take their visited slots'
+//   alphas four at a time (blend_common.cuh walk_chunk);
+// - a ring of S chunk stages with full / empty / ready mbarriers: the
+//   producer warp copies a chunk's scalar block (6 * CH floats) and feature
+//   block (C * CH floats) with two cp.async.bulk on the stage's full
+//   barrier (4-byte cp.async where a block is not 16-byte sized or
+//   aligned), and each consumer warp walks the ring at its own pace
+//   (ring_walk). At chunk 256 and C = 12 a stage is 18 KB (and 256 mask
+//   bytes) and S = 3 (gpcr_aligned_blend_stages).
 //
 // What bounds it on Hopper. As for the stream kernel: each walked (slot,
 // pixel) pair costs 16 FP32 operations (alpha and the two skip tests, expf as
 // one), a live pair 4 + 2C more; each slot is read once, (6 + C) * 4 bytes,
 // padding slots included, and acc / T are written once for every tile of the
 // image, empty ones too. On the learned stream bytes set the floor, on dense
-// analytic ones operations. The kernel is far above either floor, held by the
-// serial dependence of each pixel's walk and by long tiles running on one SM
-// while CTAs of empty tiles end at once. Later work: TMA or cp.async double
-// buffering of the two blocks, splitting long tiles over several CTAs.
+// analytic ones operations. On an H100 it takes 0.76 ms at the learned view
+// 0 (was 1.73), 6x its bound: what is left is the serial walk of the longest
+// tiles' slowest warps (97% of the longest CTA; PERF.md §6).
 //
 // Numerics. Built with -fmad=false and without --use_fast_math, and using
 // expf, so each alpha and every transmittance product is the float32 value the
-// plain PyTorch version computes; only the channel accumulation order differs.
+// plain PyTorch version computes (culling removes only pairs it skips); only
+// the channel accumulation order differs (fused multiply-adds here).
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
+using gpcr::kPix;
+using gpcr::kTile;
 constexpr int kScalRows = 6;
 
+// A tile's chunks of the planar layout, for the ring. bulk: both blocks of
+// every chunk are 16-byte sized and aligned (CH a multiple of 4, scal and
+// feat on 16-byte boundaries).
 template <int C>
-__global__ void __launch_bounds__(kPix)
+struct PlanarChunks {
+  const float* scal;  // the tile's first chunk
+  const float* feat;
+  int chunk, nch;
+  bool bulk;
+  __device__ int count() const { return nch; }
+  __device__ int n(int) const { return chunk; }
+  __device__ void issue(int k, unsigned char* dst, unsigned long long* bar,
+                        int lane) const {
+    float* d = reinterpret_cast<float*>(dst);
+    const float* s = scal + (size_t)k * kScalRows * chunk;
+    const float* f = feat + (size_t)k * C * chunk;
+    if (bulk) {
+      if (lane == 0) {
+        gpcr::mbar_arrive_expect_tx(bar,
+                                    (unsigned)((kScalRows + C) * chunk) * 4u);
+        gpcr::bulk_copy(d, s, (unsigned)(kScalRows * chunk) * 4u, bar);
+        gpcr::bulk_copy(d + kScalRows * chunk, f, (unsigned)(C * chunk) * 4u,
+                        bar);
+      }
+    } else {
+      gpcr::copy4_warp(d, s, kScalRows * chunk, lane);
+      gpcr::copy4_warp(d + kScalRows * chunk, f, C * chunk, lane);
+      gpcr::cp_async_arrive_noinc(bar);
+    }
+  }
+  __device__ gpcr::PlanarView view(const unsigned char* stage) const {
+    return {reinterpret_cast<const float*>(stage), chunk};
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(gpcr::kRingThreads, 2)
 aligned_blend_kernel(const int* __restrict__ chunk_starts,
+                     const int* __restrict__ order,
                      const float* __restrict__ scal,
                      const float* __restrict__ feat, int grid_x, int chunk,
-                     float* __restrict__ acc_out, float* __restrict__ t_out) {
-  extern __shared__ float smem[];
-  float* s_scal = smem;                     // 6 rows of chunk slots
-  float* s_feat = smem + kScalRows * chunk;  // C rows of chunk slots
-
-  const int tile = blockIdx.x;
+                     bool bulk, int stages, float* __restrict__ acc_out,
+                     float* __restrict__ t_out) {
+  GPCR_DIAG_SPAN;
+  gpcr::WarpDiag wd;
+  extern __shared__ float4 ring_smem4[];
+  const int tile = order[blockIdx.x];
   const int c0 = chunk_starts[tile];
   const int c1 = chunk_starts[tile + 1];
-  const int tid = threadIdx.x;
-  const float px = (float)((tile % grid_x) * kTile + tid % kTile);
-  const float py = (float)((tile / grid_x) * kTile + tid / kTile);
-
-  float T = 1.0f;
-  float acc[C];
+  const PlanarChunks<C> chunks{scal + (size_t)c0 * kScalRows * chunk,
+                               feat + (size_t)c0 * C * chunk, chunk, c1 - c0,
+                               bulk};
+  gpcr::PixelBlend<C> pb;
+  int stop_at = -1;
+  gpcr::ring_walk<C>(chunks, stages,
+                     (size_t)(kScalRows + C) * chunk * sizeof(float),
+                     reinterpret_cast<unsigned char*>(ring_smem4),
+                     (float)((tile % grid_x) * kTile),
+                     (float)((tile / grid_x) * kTile), pb, stop_at, wd);
+  wd.store();
+  if (threadIdx.x >= kPix) return;
+  const size_t q = (size_t)tile * kPix + gpcr::ring_pixel(threadIdx.x).p;
+  float* dst = acc_out + q * C;
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  int done = 0;
+  for (int c = 0; c < C; ++c) dst[c] = pb.acc[c];
+  t_out[q] = pb.T;
+}
 
-  for (int k = c0; k < c1; ++k) {
-    __syncthreads();  // every thread is done with the previous chunk
-    const float* ssrc = scal + (size_t)k * kScalRows * chunk;
-    for (int i = tid; i < kScalRows * chunk; i += kPix) s_scal[i] = ssrc[i];
-    const float* fsrc = feat + (size_t)k * C * chunk;
-    for (int i = tid; i < C * chunk; i += kPix) s_feat[i] = fsrc[i];
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < chunk; ++j) {
-        const float dx = s_scal[j] - px;
-        const float dy = s_scal[chunk + j] - py;
-        const float power =
-            -0.5f * (s_scal[2 * chunk + j] * dx * dx +
-                     s_scal[4 * chunk + j] * dy * dy) -
-            s_scal[3 * chunk + j] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(0.99f, s_scal[5 * chunk + j] * expf(power));
-        if (alpha < 1.0f / 255.0f) continue;
-        const float test_T = T * (1.0f - alpha);
-        if (test_T < 0.0001f) {
-          done = 1;
-          break;
-        }
-        const float w = alpha * T;
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] += s_feat[c * chunk + j] * w;
-        T = test_T;
-      }
-    }
-    if (__syncthreads_count(done) == kPix) break;
-  }
-
-  float* dst = acc_out + ((size_t)tile * kPix + tid) * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c) dst[c] = acc[c];
-  t_out[(size_t)tile * kPix + tid] = T;
+int ring(int channels, int chunk, size_t* smem) {
+  const size_t stride = gpcr::ring_stride(
+      (size_t)(kScalRows + channels) * chunk * sizeof(float), chunk);
+  const int stages = gpcr::ring_stages(stride);
+  *smem = gpcr::ring_smem(stages, stride);
+  return stages;
 }
 
 template <int C>
-cudaError_t launch(const int* chunk_starts, const float* scal,
-                   const float* feat, int num_tiles, int grid_x, int chunk,
-                   float* acc_out, float* t_out, cudaStream_t cuda_stream) {
-  const size_t smem = (size_t)(kScalRows + C) * chunk * sizeof(float);
+cudaError_t launch(const int* chunk_starts, const int* order,
+                   const float* scal, const float* feat, int num_tiles,
+                   int grid_x, int chunk, float* acc_out, float* t_out,
+                   cudaStream_t cuda_stream) {
+  size_t smem;
+  const int stages = ring(C, chunk, &smem);
+  const bool bulk = chunk % 4 == 0 && ((uintptr_t)scal & 15) == 0 &&
+                    ((uintptr_t)feat & 15) == 0;
   cudaError_t err = cudaFuncSetAttribute(
       aligned_blend_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -130,8 +161,10 @@ cudaError_t launch(const int* chunk_starts, const float* scal,
     cudaGetLastError();  // clear it, or the caller's next launch check sees it
     return err;
   }
-  aligned_blend_kernel<C><<<num_tiles, kPix, smem, cuda_stream>>>(
-      chunk_starts, scal, feat, grid_x, chunk, acc_out, t_out);
+  aligned_blend_kernel<C>
+      <<<num_tiles, gpcr::kRingThreads, smem, cuda_stream>>>(
+      chunk_starts, order, scal, feat, grid_x, chunk, bulk, stages, acc_out,
+      t_out);
   return cudaGetLastError();
 }
 
@@ -139,20 +172,21 @@ cudaError_t launch(const int* chunk_starts, const float* scal,
 
 extern "C" {
 
-// Returns a cudaError_t value: 0 on a successful launch. n_chunks is the
+// Returns a cudaError_t value: 0 on a successful launch. order lists every
+// tile id once (one CTA each, launched in this order); n_chunks is the
 // leading size of scal and feat; a tile with no chunk reads neither.
-int gpcr_aligned_blend(const int* chunk_starts, const float* scal,
-                       const float* feat, int n_chunks, int num_tiles,
-                       int grid_x, int channels, int chunk, float* acc_out,
-                       float* t_out, void* cuda_stream) {
+int gpcr_aligned_blend(const int* chunk_starts, const int* order,
+                       const float* scal, const float* feat, int n_chunks,
+                       int num_tiles, int grid_x, int channels, int chunk,
+                       float* acc_out, float* t_out, void* cuda_stream) {
   if (num_tiles <= 0) return (int)cudaSuccess;
   if (chunk <= 0 || grid_x <= 0 || n_chunks < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)cuda_stream;
 #define GPCR_CASE(NC)                                                       \
   case NC:                                                                  \
-    return (int)launch<NC>(chunk_starts, scal, feat, num_tiles, grid_x,     \
-                           chunk, acc_out, t_out, st);
+    return (int)launch<NC>(chunk_starts, order, scal, feat, num_tiles,      \
+                           grid_x, chunk, acc_out, t_out, st);
   switch (channels) {
     GPCR_CASE(1) GPCR_CASE(2) GPCR_CASE(3) GPCR_CASE(4) GPCR_CASE(5)
     GPCR_CASE(6) GPCR_CASE(7) GPCR_CASE(8) GPCR_CASE(9) GPCR_CASE(10)
@@ -164,8 +198,19 @@ int gpcr_aligned_blend(const int* chunk_starts, const float* scal,
 #undef GPCR_CASE
 }
 
+// The ring's stages for this many channels and chunk slots; its dynamic
+// shared memory in *smem_bytes.
+int gpcr_aligned_blend_stages(int channels, int chunk, int* smem_bytes) {
+  size_t smem;
+  const int stages = ring(channels, chunk, &smem);
+  *smem_bytes = (int)smem;
+  return stages;
+}
+
 const char* gpcr_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"
+
+GPCR_DIAG_SETTER(gpcr_aligned_blend_set_diag)

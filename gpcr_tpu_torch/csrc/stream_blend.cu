@@ -58,24 +58,45 @@
 // the sequential one, which moves the 1e-4 termination of some pixels by an
 // entry: this kernel keeps every pixel's walk sequential and exact.
 //
-// Contributor count (stream_blend_contrib_kernel). The training forward
-// replaces the TPU launch gpcr_tpu/ops/rasterize_stream_vjp.py::_fwd_impl
+// Contributor count (stream_count_kernel). The training forward replaces
+// the TPU launch gpcr_tpu/ops/rasterize_stream_vjp.py::_fwd_impl
 // (pl.pallas_call of _stream_kernel with with_contrib=True, downscale 1).
 // Beside acc and T it writes, per pixel, how many positions of the tile's
 // range [s, e) the pixel walked before it stopped: the in-tile index of the
 // crossing entry when it terminated, else e - s. Skipped entries count as
 // positions. The replay backward (stream_blend_bwd.cu) masks entries at or
-// past this count. It keeps the first version's walk: row-major warps, one
-// coalesced copy per chunk, every pixel testing every entry (the TPU
-// kernel's count also runs over the padding rows of a tile's last chunk,
-// which this kernel never stages, so a pixel that never terminates reports
-// e - s here; the backward's pos < e mask makes the two equivalent).
+// past this count. (The TPU kernel's count also runs over the padding rows
+// of a tile's last chunk, which this kernel never stages, so a pixel that
+// never terminates reports e - s here; the backward's pos < e mask makes
+// the two equivalent.)
+// Its first version kept the first serving walk: row-major warps, every
+// pixel testing every entry, two CTA barriers per chunk, 1.59 ms at the
+// training view 0 against a 0.015 ms bound, its longest CTA (the longest of
+// 293 tiles, 12.9x the median) the whole kernel. Redesign, for Hopper:
+// - the serving kernel's warp-block culling and grouped alphas (warps on
+//   8x4 pixel blocks, blend_common.cuh walk_chunk), its cull masks computed
+//   once per chunk by the first warp to reach it; tiles longest first
+//   (render_order);
+// - no CTA barrier per chunk: a ring of S stages guarded by mbarriers, one
+//   producer warp copying each chunk with cp.async.bulk (4-byte cp.async
+//   where rows are not 16-byte sized), and consumer warps that each walk
+//   the ring at their own pace (blend_common.cuh ring_walk), so a tile
+//   costs about its slowest warp's walk, not the sum over chunks of each
+//   chunk's slowest warp. S is the most stages, up to 8, that fit in
+//   64 KB: 8 of 64 rows of 80 B (41.7 KB) at the training shape
+//   (gpcr_count_ring reports it).
+// On an H100 it takes 0.53 ms at the training view 0 (was 1.55), still
+// 36x its bound: the longest tile's slowest warp walks its 3,953 visited
+// entries one after another, 95% of the kernel (PERF.md §6).
+// It is a kernel function of its own: the serving kernel's register
+// allocation is sensitive to its code (a change of that kind once moved a
+// kernel's time by 18.6%), and its ptxas numbers must not move.
 //
 // Numerics. Built with -fmad=false and without --use_fast_math, and using
 // expf, so each (entry, pixel) alpha and every transmittance product is the
 // same float32 value the plain PyTorch version computes (culling removes only
-// pairs the plain version skips); the channel sums differ in order, and the
-// serving kernel forms them with fused multiply-adds.
+// pairs the plain version skips); the channel sums differ in order, and
+// both kernels form them with fused multiply-adds.
 
 #include "blend_common.cuh"
 
@@ -84,9 +105,9 @@ namespace {
 using gpcr::kPix;
 using gpcr::kTile;
 
-// Visited entries whose alphas overlap. 4 was faster than 1 and 2 at the
-// learned view 0 on an H100, and 8 no faster (PERF.md §6).
-constexpr int kGroup = 4;
+// Visited entries whose alphas overlap (gpcr::kGroup, 4): faster than 1
+// and 2 at the learned view 0 on an H100, and 8 no faster (PERF.md §6).
+using gpcr::kGroup;
 
 // One (entry, pixel) pair's power and alpha, as the plain version forms them
 // (no multiply-add contraction: the same float32 value). kVec4: the staged
@@ -155,6 +176,7 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
                     int downscale, bool vec, size_t mask_off,
                     float* __restrict__ acc_out, float* __restrict__ t_out) {
   GPCR_DIAG_SPAN;
+  gpcr::WarpDiag wd;
   extern __shared__ float4 smem4[];
   float* const base = reinterpret_cast<float*>(smem4);  // 2 x chunk rows
   unsigned char* const mask =
@@ -193,13 +215,18 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
     } else {
       gpcr::cp_async_commit();  // an empty group keeps the wait uniform
     }
+    wd.wait_begin();
     gpcr::cp_async_wait_all_but_newest();
     __syncthreads();  // this chunk's rows are in
+    wd.wait_end();
     const float* rows = base + (size_t)(ch & 1) * chunk * ncols;
     for (int j = tid; j < n; j += kPix)
       mask[j] = (unsigned char)gpcr::block_mask(rows + j * ncols, x0, y0);
+    wd.wait_begin();
     __syncthreads();
+    wd.wait_end();
 
+    wd.chunk(!done);
     if (!__all_sync(0xffffffffu, done)) {
       for (int jb = 0; jb < n; jb += 32) {
         unsigned bits = __ballot_sync(
@@ -214,6 +241,10 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
             bits &= bits - 1u;
           }
           if (done) continue;
+          int nv = 0;
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) nv += js[g] >= 0;
+          wd.visit(nv);
           PairAlpha pa[kGroup];
 #pragma unroll
           for (int g = 0; g < kGroup; ++g)  // js[0] stands in for a gap
@@ -228,9 +259,13 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
       }
     }
     // every thread is done with this chunk's rows and masks
-    if (__syncthreads_count(done) == kPix) break;
+    wd.wait_begin();
+    const int n_done = __syncthreads_count(done);
+    wd.wait_end();
+    if (n_done == kPix) break;
   }
   gpcr::cp_async_wait_all();  // a copy of the next chunk may still fly
+  wd.store();
 
   if (downscale == 1) {
     float* dst = acc_out + ((size_t)tile * kPix + p) * C;
@@ -265,101 +300,69 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
 
 // ---- contributor-count kernel (training forward) ----------------------------
 
-// The first version of this file's kernel, unchanged but for its name: only
-// its kContrib = true instantiation is launched, always with downscale 1
-// (launch_contrib sizes shared memory for that alone; the downscale == 2
-// branch is never taken). The unused flag and branch stay because the
-// compiler schedules this code best: a copy with only those two removed,
-// walk unchanged, compiled to 32 registers (40 here at C = 12) and took
-// 1.8746 / 1.8734 ms against 1.5809 / 1.5795 ms at the training view 0 on
-// an H100 (18.6% slower; equal at the 800K analytic shape; PERF.md §6).
-template <int C, bool kContrib>
-__global__ void __launch_bounds__(kPix)
-stream_blend_contrib_kernel(const float* __restrict__ stream, int ncols,
-                            const int* __restrict__ starts,
-                            const int* __restrict__ order, int grid_x,
-                            int chunk, int downscale,
-                            float* __restrict__ acc_out,
-                            float* __restrict__ t_out,
-                            int* __restrict__ n_contrib_out) {
-  extern __shared__ float smem[];
-  float* rows = smem;  // chunk * ncols staged stream rows
+// A tile's stream rows, chunk by chunk, for the ring (blend_common.cuh).
+// bulk: the rows are a multiple of 16 B and the stream starts on a 16-byte
+// boundary, so every chunk goes as one cp.async.bulk.
+template <bool kVec4>
+struct RowChunks {
+  const float* src;  // the tile's first row
+  int ncols, chunk, entries;
+  bool bulk;
+  __device__ int count() const { return (entries + chunk - 1) / chunk; }
+  __device__ int n(int k) const { return min(chunk, entries - k * chunk); }
+  __device__ void issue(int k, unsigned char* dst, unsigned long long* bar,
+                        int lane) const {
+    const float* from = src + (size_t)k * chunk * ncols;
+    const unsigned nf = (unsigned)(n(k) * ncols);
+    if (bulk) {
+      if (lane == 0) {
+        gpcr::mbar_arrive_expect_tx(bar, nf * 4u);
+        gpcr::bulk_copy(dst, from, nf * 4u, bar);
+      }
+    } else {
+      gpcr::copy4_warp(reinterpret_cast<float*>(dst), from, (int)nf, lane);
+      gpcr::cp_async_arrive_noinc(bar);
+    }
+  }
+  __device__ gpcr::RowView<kVec4> view(const unsigned char* stage) const {
+    return {reinterpret_cast<const float*>(stage), ncols};
+  }
+};
 
+// One CTA of gpcr::kRingThreads per rendered tile: the chunk ring, warp-block
+// culling and grouped alphas of blend_common.cuh (ring_walk). The count of
+// a pixel that stops is the in-tile index of the crossing entry (never
+// culled: its alpha is at least 1/255), else e - s.
+template <int C, bool kVec4>
+__global__ void __launch_bounds__(gpcr::kRingThreads, 2)
+stream_count_kernel(const float* __restrict__ stream, int ncols,
+                    const int* __restrict__ starts,
+                    const int* __restrict__ order, int grid_x, int chunk,
+                    bool bulk, int stages, float* __restrict__ acc_out,
+                    float* __restrict__ t_out,
+                    int* __restrict__ n_contrib_out) {
+  GPCR_DIAG_SPAN;
+  gpcr::WarpDiag wd;
+  extern __shared__ float4 ring_smem4[];
   const int tile = order[blockIdx.x];
   const int s = starts[tile];
   const int e = starts[tile + 1];
-  const int tid = threadIdx.x;
-  const float px = (float)((tile % grid_x) * kTile + tid % kTile);
-  const float py = (float)((tile / grid_x) * kTile + tid / kTile);
-
-  float T = 1.0f;
-  float acc[C];
+  const RowChunks<kVec4> chunks{stream + (size_t)s * ncols, ncols, chunk,
+                                e - s, bulk};
+  gpcr::PixelBlend<C> pb;
+  int stop_at = -1;
+  gpcr::ring_walk<C>(chunks, stages, (size_t)chunk * ncols * sizeof(float),
+                     reinterpret_cast<unsigned char*>(ring_smem4),
+                     (float)((tile % grid_x) * kTile),
+                     (float)((tile / grid_x) * kTile), pb, stop_at, wd);
+  wd.store();
+  if (threadIdx.x >= kPix) return;
+  const size_t q = (size_t)tile * kPix + gpcr::ring_pixel(threadIdx.x).p;
+  float* dst = acc_out + q * C;
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  int done = 0;
-  int cnt = e - s;  // kContrib: positions walked by a pixel that never stops
-
-  for (int base = s; base < e; base += chunk) {
-    const int n = min(chunk, e - base);
-    __syncthreads();  // every thread is done with the previous chunk
-    const float* src = stream + (size_t)base * ncols;
-    for (int i = tid; i < n * ncols; i += kPix) rows[i] = src[i];
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        const float* r = rows + j * ncols;
-        const float dx = r[0] - px;
-        const float dy = r[1] - py;
-        const float power =
-            -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(0.99f, r[5] * expf(power));
-        if (alpha < 1.0f / 255.0f) continue;
-        const float test_T = T * (1.0f - alpha);
-        if (test_T < 0.0001f) {
-          done = 1;
-          if (kContrib) cnt = base - s + j;
-          break;
-        }
-        const float w = alpha * T;
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] += r[8 + c] * w;
-        T = test_T;
-      }
-    }
-    if (__syncthreads_count(done) == kPix) break;
-  }
-
-  if (downscale == 1) {
-    float* dst = acc_out + ((size_t)tile * kPix + tid) * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) dst[c] = acc[c];
-    t_out[(size_t)tile * kPix + tid] = T;
-    if (kContrib) n_contrib_out[(size_t)tile * kPix + tid] = cnt;
-    return;
-  }
-  // downscale == 2: 2x2 means through shared memory (stride C + 1 floats
-  // per pixel: acc then T)
-  float* red = smem + (size_t)chunk * ncols;
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < C; ++c) red[tid * (C + 1) + c] = acc[c];
-  red[tid * (C + 1) + C] = T;
-  __syncthreads();
-  constexpr int kOut = kTile / 2;
-  if (tid < kOut * kOut) {
-    const int qy = tid / kOut;
-    const int qx = tid % kOut;
-    const float* a = red + ((2 * qy) * kTile + 2 * qx) * (C + 1);
-    const float* b = a + (C + 1);
-    const float* c2 = a + kTile * (C + 1);
-    const float* d = c2 + (C + 1);
-    float* dst = acc_out + ((size_t)tile * (kOut * kOut) + tid) * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) dst[c] = (a[c] + b[c] + c2[c] + d[c]) * 0.25f;
-    t_out[(size_t)tile * (kOut * kOut) + tid] =
-        (a[C] + b[C] + c2[C] + d[C]) * 0.25f;
-  }
+  for (int c = 0; c < C; ++c) dst[c] = pb.acc[c];
+  t_out[q] = pb.T;
+  n_contrib_out[q] = stop_at >= 0 ? stop_at : e - s;
 }
 
 template <typename K>
@@ -392,18 +395,31 @@ cudaError_t launch(const float* stream, int ncols, const int* starts,
   return cudaGetLastError();
 }
 
+// The count kernel's ring for rows of ncols floats: stages and shared bytes.
+int count_ring(int ncols, int chunk, size_t* smem) {
+  const size_t stride =
+      gpcr::ring_stride((size_t)chunk * ncols * sizeof(float), chunk);
+  const int stages = gpcr::ring_stages(stride);
+  *smem = gpcr::ring_smem(stages, stride);
+  return stages;
+}
+
 template <int C>
-cudaError_t launch_contrib(const float* stream, int ncols, const int* starts,
-                           const int* order, int n_order, int grid_x,
-                           int chunk, float* acc_out, float* t_out,
-                           int* n_contrib_out, cudaStream_t st) {
-  const size_t smem = (size_t)chunk * ncols * sizeof(float);
-  const cudaError_t err =
-      allow_smem(stream_blend_contrib_kernel<C, true>, smem);
+cudaError_t launch_count(const float* stream, int ncols, const int* starts,
+                         const int* order, int n_order, int grid_x, int chunk,
+                         float* acc_out, float* t_out, int* n_contrib_out,
+                         cudaStream_t st) {
+  size_t smem;
+  const int stages = count_ring(ncols, chunk, &smem);
+  const bool bulk = gpcr::rows_vectorizable(stream, ncols);
+  // rows of a multiple of 16 B sit 16-byte aligned in the stages
+  auto kernel = ncols % 4 == 0 ? stream_count_kernel<C, true>
+                               : stream_count_kernel<C, false>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  stream_blend_contrib_kernel<C, true><<<n_order, kPix, smem, st>>>(
-      stream, ncols, starts, order, grid_x, chunk, 1, acc_out, t_out,
-      n_contrib_out);
+  kernel<<<n_order, gpcr::kRingThreads, smem, st>>>(
+      stream, ncols, starts, order, grid_x, chunk, bulk, stages, acc_out,
+      t_out, n_contrib_out);
   return cudaGetLastError();
 }
 
@@ -451,11 +467,20 @@ int gpcr_stream_blend_contrib(const float* stream, int ncols,
   if (n_order <= 0) return (int)cudaSuccess;
   if (chunk <= 0 || ncols < 8 + channels) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)cuda_stream;
-#define GPCR_COUNT(NC)                                                   \
-  launch_contrib<NC>(stream, ncols, starts, order, n_order, grid_x, chunk, \
-                     acc_out, t_out, n_contrib_out, st)
+#define GPCR_COUNT(NC)                                                 \
+  launch_count<NC>(stream, ncols, starts, order, n_order, grid_x, chunk, \
+                   acc_out, t_out, n_contrib_out, st)
   GPCR_CHANNEL_SWITCH(GPCR_COUNT)
 #undef GPCR_COUNT
+}
+
+// The count kernel's ring stages for rows of ncols floats and chunk rows;
+// its dynamic shared memory in *smem_bytes.
+int gpcr_count_ring(int ncols, int chunk, int* smem_bytes) {
+  size_t smem;
+  const int stages = count_ring(ncols, chunk, &smem);
+  *smem_bytes = (int)smem;
+  return stages;
 }
 
 const char* gpcr_cuda_error_string(int code) {

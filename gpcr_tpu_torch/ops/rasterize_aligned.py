@@ -20,7 +20,10 @@ exactly the chunks in use.
 
 The blend (``blend_aligned_tiles``) launches ``csrc/aligned_blend.cu`` for
 CUDA tensors, one CTA per tile over ALL tiles of the image (an empty tile
-gets acc 0 and T 1), and runs ``blend_aligned_plain`` for CPU tensors. It
+gets acc 0 and T 1), longest tiles first (``aligned_order``), and runs
+``blend_aligned_plain`` for CPU tensors. The kernel's warps skip the slots
+whose alpha cannot reach their 8x4 pixel block; ``block_mask_planar_plain``
+is that predicate in plain PyTorch. It
 never falls back: a CUDA run that cannot build or launch the kernel
 raises. As in the JAX package the route is forward only, ignores
 ``config.downscale`` and drops the binning's overflow count.
@@ -190,6 +193,24 @@ def blend_aligned_plain(chunk_starts, scal, feat, num_tiles: int, grid_x: int,
     return acc_all, t_all
 
 
+def block_mask_planar_plain(scal: torch.Tensor, x0: float,
+                            y0: float) -> torch.Tensor:
+    """The kernel's cull predicate on the planar layout
+    (``PlanarView::mask`` in ``csrc/blend_common.cuh``): for chunks
+    ``scal (K, 6, CH)`` of the tile at pixel origin (x0, y0), (K, CH, 8)
+    bool, True where the slot's alpha may reach >= 1/255 somewhere in warp
+    w's 8x4 block. It is ``block_mask_plain``'s predicate on the six
+    scalars (the value overload of ``block_mask``), except that a slot
+    padding a tile's last chunk (all zero: alpha 0 at every pixel) reaches
+    no block."""
+    from .rasterize_stream import block_mask_values
+
+    mx, my, a, b, c, op = scal.to(torch.float32).unbind(1)
+    pad = ((op == 0) & (a == 0) & (b == 0) & (c == 0) & (mx.abs() < 1e30)
+           & (my.abs() < 1e30))
+    return block_mask_values(mx, my, a, b, c, op, x0, y0) & ~pad[..., None]
+
+
 def _check_inputs(chunk_starts, scal, feat, num_tiles, channels,
                   config: R.RasterizeConfig) -> None:
     """Raise on what the CUDA kernel does not take: it reads raw pointers,
@@ -220,9 +241,19 @@ def _check_inputs(chunk_starts, scal, feat, num_tiles, channels,
         raise ValueError(f"chunk_starts must be ({num_tiles + 1},)")
 
 
+def aligned_order(chunk_starts) -> torch.Tensor:
+    """The CUDA kernel's tile order: every tile id once, by descending
+    chunk count (ties by ascending id), so the longest tiles start first
+    and the empty ones, whose CTAs only write acc 0 and T 1, go last.
+    Computed on the tensors' device, without a host sync."""
+    n_chunks = chunk_starts[1:] - chunk_starts[:-1]
+    return torch.argsort(-n_chunks, stable=True).to(torch.int32)
+
+
 def _blend_aligned_cuda(chunk_starts, scal, feat, num_tiles, grid_x, channels,
-                        config: R.RasterizeConfig):
-    """Launch ``csrc/aligned_blend.cu`` on the current CUDA stream."""
+                        config: R.RasterizeConfig, order=None):
+    """Launch ``csrc/aligned_blend.cu`` on the current CUDA stream, one CTA
+    per tile of ``order`` (default ``aligned_order``: longest first)."""
     global LAUNCHES
     _check_inputs(chunk_starts, scal, feat, num_tiles, channels, config)
     dev = scal.device
@@ -232,11 +263,17 @@ def _blend_aligned_cuda(chunk_starts, scal, feat, num_tiles, grid_x, channels,
     t = torch.empty((num_tiles, 256), dtype=torch.float32, device=dev)
     if num_tiles == 0:
         return acc, t
+    if order is None:
+        order = aligned_order(chunk_starts)
+    if (order.dtype != torch.int32 or order.device != dev
+            or order.shape != (num_tiles,) or not order.is_contiguous()):
+        raise ValueError(f"order must be a contiguous ({num_tiles},) int32 "
+                         f"tensor on {dev}")
     lib = _aligned_blend_lib()
     rc = lib.gpcr_aligned_blend(
-        chunk_starts.data_ptr(), scal.data_ptr(), feat.data_ptr(),
-        scal.shape[0], num_tiles, grid_x, channels, config.chunk_size,
-        acc.data_ptr(), t.data_ptr(),
+        chunk_starts.data_ptr(), order.data_ptr(), scal.data_ptr(),
+        feat.data_ptr(), scal.shape[0], num_tiles, grid_x, channels,
+        config.chunk_size, acc.data_ptr(), t.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -246,13 +283,24 @@ def _blend_aligned_cuda(chunk_starts, scal, feat, num_tiles, grid_x, channels,
     return acc, t
 
 
+def aligned_ring_stages(channels: int, chunk: int):
+    """(stages, dynamic shared bytes) of the kernel's chunk ring at this
+    many channels and chunk slots (builds the library on first use)."""
+    smem = ctypes.c_int(0)
+    stages = _aligned_blend_lib().gpcr_aligned_blend_stages(
+        channels, chunk, ctypes.byref(smem))
+    return stages, smem.value
+
+
 def _aligned_blend_lib():
     lib = cuda_build.load("aligned_blend")
     if not getattr(lib, "_gpcr_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gpcr_aligned_blend.argtypes = [
-            vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.gpcr_aligned_blend.restype = ci
+        lib.gpcr_aligned_blend_stages.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.gpcr_aligned_blend_stages.restype = ci
         lib.gpcr_cuda_error_string.argtypes = [ci]
         lib.gpcr_cuda_error_string.restype = ctypes.c_char_p
         lib._gpcr_typed = True

@@ -21,7 +21,7 @@ Pallas kernel):
 
 The blend (``blend_tiles``) launches the CUDA kernel
 ``csrc/stream_blend.cu`` for CUDA tensors and runs ``blend_tiles_plain``
-for CPU tensors. The serving kernel skips, per warp of 8x4 pixels, the
+for CPU tensors. Both of its kernels skip, per warp of 8x4 pixels, the
 entries whose alpha cannot reach the warp's pixels; ``block_mask_plain``
 is that predicate in plain PyTorch. It never falls back: a CUDA run that
 cannot build or launch the kernel raises. With ``with_contrib`` (the training forward,
@@ -283,15 +283,23 @@ def blend_tiles_plain(
 
 
 def block_mask_plain(rows: torch.Tensor, x0: float, y0: float) -> torch.Tensor:
-    """The serving blend kernel's cull predicate (``block_mask`` in
-    ``csrc/stream_blend.cu``), op for op in float32: for stream rows
+    """The blend kernels' cull predicate (``block_mask`` in
+    ``csrc/blend_common.cuh``), op for op in float32: for stream rows
     (n, >= 6) and a tile at pixel origin (x0, y0), (n, 8) bool, True where
     the entry's alpha may reach >= 1/255 somewhere in the 8x4 pixel block
     at (x0 + (w % 2) * 8, y0 + (w // 2) * 4) (warp w of the kernel). A
     False pair is one the plain version skips (power > 0 or alpha < 1/255
     at every pixel of the block); the kernel's warp walks only True
     ones."""
-    mx, my, a, b, c, op = rows[:, :6].to(torch.float32).unbind(1)
+    return block_mask_values(*rows[:, :6].to(torch.float32).unbind(1),
+                             x0, y0)
+
+
+def block_mask_values(mx, my, a, b, c, op, x0: float,
+                      y0: float) -> torch.Tensor:
+    """``block_mask_plain`` on the six scalars given as tensors of one
+    shape S (the kernels' value overload of ``block_mask``): S + (8,)
+    bool."""
     det = a * c - b * b
     regular = ((a > 0) & (c > 0) & (det > 1e-3 * (a * c))
                & (mx.abs() < 1e30) & (my.abs() < 1e30) & ~torch.isnan(op))
@@ -300,17 +308,17 @@ def block_mask_plain(rows: torch.Tensor, x0: float, y0: float) -> torch.Tensor:
     shrink = 1.0 - 1e-5 * ((torch.maximum(a, c) + b.abs()) * lmax / det)
     tau = torch.log(255.0 * op)
     tau_eff = (tau + 1e-5 * tau.abs() + 2e-5) / shrink
-    hx = (torch.sqrt(2.0 * tau_eff * c / det) * 1.001 + 0.05)[:, None]
-    hy = (torch.sqrt(2.0 * tau_eff * a / det) * 1.001 + 0.05)[:, None]
-    w = torch.arange(8, device=rows.device)
-    bx = (x0 + (w % 2) * 8).to(torch.float32)[None]
-    by = (y0 + (w // 2) * 4).to(torch.float32)[None]
-    mx, my = mx[:, None], my[:, None]
+    hx = (torch.sqrt(2.0 * tau_eff * c / det) * 1.001 + 0.05)[..., None]
+    hy = (torch.sqrt(2.0 * tau_eff * a / det) * 1.001 + 0.05)[..., None]
+    w = torch.arange(8, device=mx.device)
+    bx = (x0 + (w % 2) * 8).to(torch.float32)
+    by = (y0 + (w // 2) * 4).to(torch.float32)
+    mx, my = mx[..., None], my[..., None]
     hit = ((mx - hx <= bx + 7.0) & (mx + hx >= bx)
            & (my - hy <= by + 3.0) & (my + hy >= by))
-    hit = hit & ~(tau_eff < 0)[:, None]
-    culls = (regular & (op > 0) & (shrink > 0.5))[:, None]
-    every = (~regular | ((op > 0) & ~(shrink > 0.5)))[:, None]
+    hit = hit & ~(tau_eff < 0)[..., None]
+    culls = (regular & (op > 0) & (shrink > 0.5))[..., None]
+    every = (~regular | ((op > 0) & ~(shrink > 0.5)))[..., None]
     return torch.where(culls, hit, every.expand_as(hit))
 
 
@@ -382,6 +390,16 @@ def _blend_tiles_cuda(stream, starts, order, num_tiles, grid_x, channels,
     return acc, t
 
 
+def count_ring_stages(ncols: int, chunk: int):
+    """(stages, dynamic shared bytes) of the contributor-count kernel's
+    chunk ring for stream rows of ``ncols`` floats and ``chunk`` rows per
+    chunk (builds the library on first use)."""
+    smem = ctypes.c_int(0)
+    stages = _stream_blend_lib().gpcr_count_ring(ncols, chunk,
+                                                 ctypes.byref(smem))
+    return stages, smem.value
+
+
 def _stream_blend_lib():
     lib = cuda_build.load("stream_blend")
     if not getattr(lib, "_gpcr_typed", False):
@@ -392,6 +410,9 @@ def _stream_blend_lib():
         lib.gpcr_stream_blend_contrib.argtypes = [
             vp, ci, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
         lib.gpcr_stream_blend_contrib.restype = ci
+        if hasattr(lib, "gpcr_count_ring"):  # not in older builds
+            lib.gpcr_count_ring.argtypes = [ci, ci, ctypes.POINTER(ci)]
+            lib.gpcr_count_ring.restype = ci
         lib.gpcr_cuda_error_string.argtypes = [ci]
         lib.gpcr_cuda_error_string.restype = ctypes.c_char_p
         lib._gpcr_typed = True

@@ -8,7 +8,9 @@ from a seed, and the per-tile work they give the kernels:
   ``train`` CLI's loader: the contributor-count forward and the replay
   backward (``train_view0``);
 - analytic: isotropic gaussians on a stretched sphere at 1024², C = 3,
-  dup cap 8, chunk 128 (``analytic_scene``, ``analytic_view0``).
+  dup cap 8, chunk 128 (``analytic_scene``, ``analytic_view0``);
+- aligned view 0: the learned view 0's entries in the chunk-aligned
+  layout of the aligned all-tiles blend (``aligned_view0``).
 
 ``chip_smoke.py`` and ``cli/profile_blend.py`` build their shapes here.
 """
@@ -83,6 +85,22 @@ def view0_stream(sp: dict):
     prep, channels, res = view0_prep(sp)
     with torch.no_grad():
         return (*bin_view(prep, res, config), channels, config)
+
+
+def aligned_view0(sp: dict):
+    """The aligned blend's inputs at view 0 (``tile_bin_aligned`` of the
+    same preprocessed splats, chunk 256, all tiles): (chunk_starts, scal,
+    feat, num_tiles, grid_x, channels, config)."""
+    from ..ops import rasterize_aligned as RA
+
+    config = sp["config"]
+    prep, channels, res = view0_prep(sp)
+    grid_x = -(-res // 16)
+    num_tiles = grid_x * grid_x
+    with torch.no_grad():
+        scal, feat, cstarts, _ = RA.tile_bin_aligned(prep, num_tiles, grid_x,
+                                                     config)
+    return cstarts, scal, feat, num_tiles, grid_x, channels, config
 
 
 def train_view0(trainer, n_points: int, hw: int):
@@ -187,3 +205,27 @@ def tile_work(starts, order, n_contrib, chunk: int, forward: bool) -> dict:
     return {"tiles": int(keep.sum()), "entries": distribution(cnt),
             "walked": distribution(walked),
             "stopped_share": float(1 - nc.sum() / max(int(slots), 1))}
+
+
+def aligned_work(chunk_starts, n_contrib, counts, chunk: int) -> dict:
+    """Over the non-empty tiles of a chunk-aligned layout: chunks per tile,
+    chunks the tile's CTA walks (until its last pixel stops: the pixel
+    that stops at in-tile index k reads chunk k // chunk), the number of
+    empty tiles, and the share of the walked (slot, pixel) pairs that
+    belong to pixels already stopped. ``n_contrib`` is the contributor
+    count of the stream forward over the same entries at native
+    resolution and ``counts`` the entries per tile, both in tile order."""
+    cs = chunk_starts.long()
+    nch = cs[1:] - cs[:-1]
+    keep = nch > 0
+    nch, nc = nch[keep], n_contrib[keep].long()
+    top = nc.amax(dim=1)
+    walked = torch.minimum(nch, top // chunk + 1)
+    slots = walked * chunk
+    # a pixel that never stopped walks every slot its tile's CTA walks
+    stopped = nc < counts[keep].long()[:, None]
+    own = torch.where(stopped, nc, slots[:, None])
+    return {"tiles": int(keep.sum()), "empty_tiles": int((~keep).sum()),
+            "chunks": distribution(nch), "walked_chunks": distribution(walked),
+            "stopped_share": float(1 - own.sum()
+                                   / max(int(256 * slots.sum()), 1))}

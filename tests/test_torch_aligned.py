@@ -30,7 +30,7 @@ from gpcr_tpu_torch.ops import rasterize_stream as TRS
 from gpcr_tpu_torch.render.renderer import pin_fp32
 
 from test_rasterize import make_camera_matrices, random_scene
-from test_torch_stream import _configs, _preps, scene
+from test_torch_stream import _adversarial_rows, _configs, _preps, scene
 
 pin_fp32()  # parity precision: full-float32 matmuls, no TF32 on a card
 
@@ -187,6 +187,42 @@ def test_blend_aligned_plain_on_its_layout():
     np.testing.assert_array_equal(t2.numpy(), t.numpy())
     np.testing.assert_allclose(
         out.numpy(), (acc + t[..., None] * bg).numpy(), atol=0)
+
+
+def test_aligned_order_is_longest_first_with_empty_tiles_last():
+    """The CUDA kernel's tile order: every tile once, by descending chunk
+    count, ties by ascending id, so the empty tiles come last."""
+    n_chunks = np.random.RandomState(0).choice([0, 0, 1, 2, 3, 7], 300)
+    cstarts = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(n_chunks)]).astype(np.int32))
+    order = TRA.aligned_order(cstarts)
+    assert order.dtype == torch.int32
+    ids = order.numpy()
+    assert sorted(ids.tolist()) == list(range(300))
+    got = n_chunks[ids]
+    assert (np.diff(got) <= 0).all()
+    n_empty = int((n_chunks == 0).sum())
+    assert n_empty > 0 and (got[-n_empty:] == 0).all()
+    for v in np.unique(n_chunks):
+        assert (np.diff(ids[got == v]) > 0).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_planar_cull_predicate_equals_the_row_form(seed):
+    """The kernel's cull predicate on the planar layout (the value
+    overload of ``block_mask``) is the row form's on the adversarial rows
+    (near-degenerate conics, opacities around 1/255, zero and NaN
+    opacities, means far off the tile); the zero slots that pad a chunk
+    are culled for every block."""
+    x0, y0 = 32.0, 48.0
+    rows = _adversarial_rows(seed, x0=x0, y0=y0)
+    n, ch = rows.shape[0], 64
+    slots = torch.zeros((-(-n // ch) * ch, 6))
+    slots[:n] = rows
+    scal = slots.reshape(-1, ch, 6).transpose(1, 2).contiguous()
+    got = TRA.block_mask_planar_plain(scal, x0, y0).reshape(-1, 8)
+    assert torch.equal(got[:n], TRS.block_mask_plain(rows, x0, y0))
+    assert not bool(got[n:].any())
 
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card (``gpu`` marker): the serving
 stream blend (with its warp-level culling), the contributor-count
-forward, the replay backward (tiles split into segments) and the aligned
-all-tiles blend.
+forward and the aligned all-tiles blend (both walking a chunk ring), the
+replay backward (tiles split into segments).
 
 Each test skips without a CUDA device; the decision is taken inside the
 ``cuda`` fixture, never at import. The file imports no JAX, so it also
@@ -31,7 +31,7 @@ from gpcr_tpu_torch.ops import rasterize_stream as TRS
 from gpcr_tpu_torch.ops import rasterize_stream_vjp as TV
 from gpcr_tpu_torch.render.renderer import pin_fp32
 
-from torch_streams import tile_stream
+from torch_streams import aligned_layout, ring_tiles, tile_stream
 
 pin_fp32()  # parity precision: full-float32 matmuls, no TF32 on a card
 
@@ -421,3 +421,99 @@ def test_refused_aligned_launch_raises(cuda):
     with pytest.raises(ValueError, match="feat must be"):
         TRA.blend_aligned_tiles(cstarts, scal, feat[:, :9].contiguous(), 64,
                                 8, 12, config)
+
+
+# --------------------------------------------------------------------------
+# the chunk ring (count forward and aligned blend)
+# --------------------------------------------------------------------------
+
+
+def _ring_lengths(chunk, stages):
+    """Tile lengths around the ring: 1 entry, 1, S and 3S + 1 chunks,
+    another 3S + 1 chunks for the split tile (id 4: its left warps stop in
+    their first chunk, its right ones never), and an empty tile."""
+    long = (3 * stages + 1) * chunk
+    return [1, chunk, stages * chunk, long, long, 0]
+
+
+def _assert_split_tile(cnt, lengths, chunk):
+    c4 = cnt[4].reshape(16, 16)
+    assert int(c4[:, :8].max()) < chunk
+    assert bool((c4[:, 8:] == lengths[4]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("channels", [3, 9, 12])
+def test_count_kernel_ring_matches_plain(cuda, channels, misaligned):
+    """The contributor-count forward on tiles of 1 entry and of 1, S and
+    3S + 1 chunks of its ring, and on a tile where some warps stop in
+    their first chunk while the others never stop: counts equal to the
+    plain version's, acc and T within 1e-4 max / 1e-6 mean, the same bits
+    on two launches. ``misaligned`` starts the stream 4 bytes off a
+    16-byte boundary (4-byte copies instead of one bulk copy per chunk)."""
+    chunk = 64
+    stages, smem = TRS.count_ring_stages(8 + channels, chunk)
+    assert 2 <= stages <= 8 and smem >= stages * chunk * (8 + channels) * 4
+    lengths = _ring_lengths(chunk, stages)
+    stream, starts = ring_tiles(lengths, seed=channels, channels=channels,
+                                split=(4,))
+    if misaligned:
+        buf = torch.empty(stream.numel() + 1, device=cuda)
+        stream = buf[1:].view(stream.shape).copy_(stream.to(cuda))
+        assert stream.data_ptr() % 16 != 0
+    stream, starts = stream.to(cuda), starts.to(cuda)
+    nt, gx = len(lengths), 3
+    order = torch.argsort(-(starts[1:] - starts[:-1]), stable=True).to(
+        torch.int32)
+    config = TR.RasterizeConfig(chunk_size=chunk)
+    args = (stream, starts, order, nt, gx, channels, config)
+    before = TRS.LAUNCHES_CONTRIB
+    first = TRS.blend_tiles(*args, with_contrib=True)
+    again = TRS.blend_tiles(*args, with_contrib=True)
+    torch.cuda.synchronize()
+    assert TRS.LAUNCHES_CONTRIB == before + 2
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    acc_p, t_p, cnt_p = TRS.blend_tiles_plain(*args, with_contrib=True)
+    assert torch.equal(first[2], cnt_p)
+    for got, ref in zip(first[:2], (acc_p, t_p)):
+        err = (got - ref).abs()
+        assert float(err.max()) <= 1e-4 and float(err.mean()) <= 1e-6
+    _assert_split_tile(cnt_p, lengths, chunk)
+    assert bool((first[1][5] == 1).all()) and not bool(first[2][5].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [50, 64, 256])
+@pytest.mark.parametrize("channels", [3, 9, 12])
+def test_aligned_kernel_ring_matches_plain(cuda, channels, chunk):
+    """The aligned blend on the same tile lengths of its ring (chunk 50:
+    blocks not 16-byte sized, 4-byte copies), the split tile and an empty
+    tile: acc and T within 1e-4 max / 1e-6 mean of the plain version, the
+    same bits on two launches, the empty tile at acc 0 and T 1."""
+    stages, smem = TRA.aligned_ring_stages(channels, chunk)
+    assert 2 <= stages <= 8 and smem >= stages * chunk * (6 + channels) * 4
+    lengths = _ring_lengths(chunk, stages)
+    stream, starts = ring_tiles(lengths, seed=10 + channels,
+                                channels=channels, split=(4,))
+    cstarts, scal, feat = (x.to(cuda) for x in aligned_layout(
+        stream, starts, chunk, channels))
+    config = TR.RasterizeConfig(chunk_size=chunk)
+    args = (cstarts, scal, feat, len(lengths), 3, channels, config)
+    before = TRA.LAUNCHES
+    first = TRA.blend_aligned_tiles(*args)
+    again = TRA.blend_aligned_tiles(*args)
+    torch.cuda.synchronize()
+    assert TRA.LAUNCHES == before + 2
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    acc_p, t_p = TRA.blend_aligned_plain(*args)
+    for got, ref in zip(first, (acc_p, t_p)):
+        err = (got - ref).abs()
+        assert float(err.max()) <= 1e-4 and float(err.mean()) <= 1e-6
+    _, _, cnt = TRS.blend_tiles_plain(
+        stream, starts, torch.arange(len(lengths), dtype=torch.int32),
+        len(lengths), 3, channels, config, with_contrib=True)
+    _assert_split_tile(cnt, lengths, chunk)
+    assert bool((first[0][5] == 0).all()) and bool((first[1][5] == 1).all())

@@ -11,6 +11,8 @@ The CUDA kernel itself is checked against the plain version on the card
 by tests/test_torch_gpu.py.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -289,3 +291,23 @@ def test_cull_predicate_never_drops_a_kept_pair(seed):
         assert not bool((_reach(stream[s:e], tx, ty) & ~m).any())
         culled += int((~m).sum())
     assert culled > 0.3 * 8 * int(starts[-1])
+
+
+def test_ab_source_copies_undo_one_step_each(tmp_path):
+    """``cli/ab_sources.py`` (the per-step A/B copies of the ring kernels)
+    still applies to this tree: each copy differs from it in the shared
+    header only, and no two copies are equal."""
+    from gpcr_tpu_torch.cli import ab_sources
+
+    dirs = ab_sources.write(str(tmp_path))
+    assert sorted(dirs) == sorted(ab_sources.STEPS)
+    own = {n: open(os.path.join(cuda_build.CSRC_DIR, n)).read()
+           for n in ab_sources.FILES}
+    headers = set()
+    for d in dirs.values():
+        got = {n: open(os.path.join(d, n)).read() for n in ab_sources.FILES}
+        assert got["stream_blend.cu"] == own["stream_blend.cu"]
+        assert got["aligned_blend.cu"] == own["aligned_blend.cu"]
+        assert got["blend_common.cuh"] != own["blend_common.cuh"]
+        headers.add(got["blend_common.cuh"])
+    assert len(headers) == len(dirs)

@@ -45,3 +45,67 @@ def tile_stream(counts, seed, channels=3, grid_x=3, sigma=(1.0, 6.0),
     starts = torch.from_numpy(
         np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
     return stream, starts
+
+
+def split_tile_rows(n, seed, x0=0.0, y0=0.0, channels=3):
+    """``n`` stream rows (numpy, 8 + channels columns) of one tile at pixel
+    origin (x0, y0) on which the left 8x4 blocks' pixels (x < 8) stop in
+    the first 48 entries and the right ones (x >= 8) never stop: first
+    six opaque splats per pixel column x = 0..7, each sharp in x (sigma
+    0.28 px: alpha 0.8-0.99 on its column, below 1/255 one column over)
+    and long in y; then faint wide splats (opacity 0.004-0.006) over the
+    right half, which take off at most a few percent of T."""
+    rng = np.random.RandomState(seed)
+    k = min(n, 48)
+    cols = np.tile(np.arange(8.0), 6)[:k]
+    sx, sy = 0.28, 12.0
+    head = np.stack([x0 + cols, y0 + 7.5 + np.zeros(k),
+                     np.full(k, 1 / sx ** 2), np.zeros(k),
+                     np.full(k, 1 / sy ** 2), np.full(k, 0.99),
+                     np.zeros(k), np.zeros(k)], 1)
+    m = n - k
+    sig = rng.uniform(2.0, 6.0, m)
+    tail = np.stack([x0 + rng.uniform(9, 15, m), y0 + rng.uniform(0, 15, m),
+                     1 / sig ** 2, np.zeros(m), 1 / sig ** 2,
+                     rng.uniform(0.004, 0.006, m), np.zeros(m),
+                     np.zeros(m)], 1)
+    rows = np.concatenate([head, tail])
+    return np.concatenate([rows, rng.rand(n, channels)], 1)
+
+
+def ring_tiles(lengths, seed, channels, split=()):
+    """A stream of tiles on a grid 3 wide holding exactly ``lengths``
+    entries each (CPU tensors): ``tile_stream``'s random splats, or
+    ``split_tile_rows`` for the tile ids in ``split``."""
+    rows = []
+    for tile, n in enumerate(lengths):
+        if tile in split:
+            rows.append(split_tile_rows(n, seed + tile, tile % 3 * 16.0,
+                                        tile // 3 * 16.0, channels))
+        else:
+            s, _ = tile_stream([0] * tile + [n], seed + tile,
+                               channels=channels, sigma=(1.0, 6.0))
+            rows.append(s.numpy().astype(np.float64))
+    stream = torch.from_numpy(np.concatenate(rows).astype(np.float32))
+    starts = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32))
+    return stream, starts
+
+
+def aligned_layout(stream, starts, chunk, channels):
+    """The chunk-aligned layout (``rasterize_aligned.tile_bin_aligned``'s)
+    of a stream's tiles: (chunk_starts (T + 1,) i32, scal (Kc, 6, chunk),
+    feat (Kc, C, chunk)), each tile padded to whole chunks with zero
+    slots."""
+    counts = (starts[1:] - starts[:-1]).long()
+    nch = (counts + chunk - 1) // chunk
+    cstarts = torch.cat([torch.zeros(1, dtype=torch.long), nch.cumsum(0)])
+    slots = torch.zeros((int(cstarts[-1]) * chunk, 6 + channels))
+    for t in range(counts.numel()):
+        s, e = int(starts[t]), int(starts[t + 1])
+        a = int(cstarts[t]) * chunk
+        slots[a:a + e - s, :6] = stream[s:e, :6]
+        slots[a:a + e - s, 6:] = stream[s:e, 8:8 + channels]
+    slots = slots.reshape(-1, chunk, 6 + channels).transpose(1, 2)
+    return (cstarts.to(torch.int32), slots[:, :6].contiguous(),
+            slots[:, 6:].contiguous())
