@@ -52,9 +52,26 @@ Phases, each printing what it found:
    as skipped: its weights are not in the repository); ``--metric_only``
    must give the same numbers, and the ``cam`` task a trajectory that
    ``Camera.load`` reads back;
-8. gradients: one small scene through the differentiable rasterizer on the
+8. pipeline: the scored run's OBJ through ``preprocess_obj`` into a new
+   dataset root; ``cli.sample_pcd`` with ``uniform_quantized`` at the
+   scored run's 1.3M candidates (the same PLY, byte for byte),
+   ``poisson_disk`` at 200K points (no two closer than half the
+   elimination radius, grid-checked on the card) and ``uniform_camera``
+   at 800K; the native PLY parser against the Python reader (equal
+   arrays, both timed); ``pipeline.rescale_run`` / ``scale_run`` at factor
+   448 (xyz within 1e-3, rgb equal); ``simple --down_sample_ratio 0.5``
+   against the mesh (>= SIMPLE_PSNR_FLOOR; ``voxel_downsampling`` on the
+   card against the CPU: equal cells, 1e-5; CUDA-event ms); ``pcrender``
+   at the deployed width on the round-tripped cloud within 0.1 dB of the
+   scored run's; ``pipeline.evaluate_pair`` equal to the CLI's scores and
+   ``save_difference_map``; a ``manual`` trajectory and its spiral through
+   ``simple`` (the launch counter reset before each must grow); the
+   z-buffer against the ray caster on one 512² view (tests/test_mesh.py's
+   bars) and ``RGBDImage.get_pcd`` on the card against the CPU (1e-5);
+   the 12 views titled and tiled into one PNG;
+9. gradients: one small scene through the differentiable rasterizer on the
    card against the CPU path;
-9. training slice: the ``train`` CLI at the deployed width on synthetic
+10. training slice: the ``train`` CLI at the deployed width on synthetic
    scenes (batch 1, 200K points, 2 views at 512², scale factor 448) takes
    4 steps, then resumes for a 5th; both training launch counters are
    reset just before and must grow; losses finite, parameters moved, no
@@ -62,7 +79,7 @@ Phases, each printing what it found:
    against their plain versions at this path's view-0 shape, and the
    rasterizer's forward + backward is timed at 800K analytic gaussians,
    1024², C = 3 (each shape with its ``[tile-work]`` line);
-10. one JSON line describing the four kernels, then the result line.
+11. one JSON line describing the four kernels, then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
@@ -71,6 +88,7 @@ result, when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -102,6 +120,10 @@ BWD_REL, BWD_ABS = 1e-4, 1e-6
 BWD_L2_REL = 1e-5
 GRAD_REL = 1e-3  # card vs CPU gradients, max |d| over max |g| per input
 DUP_CAP = 256
+# sample_pcd's poisson_disk at a quarter of the CLI's 800K points (1M
+# candidates through the elimination) to hold the pipeline phase's time
+POISSON_POINTS = 200_000
+MANUAL_EYES = ["0 0.3 3", "3 0.3 0", "0 -0.3 -3", "-3 -0.3 0"]
 TRAIN_ARGS = ["--batch_size", "1", "--n_points", "200000", "--n_views", "2",
               "--hw", "512", "--scale_factor", "448", "--warmup", "1",
               "--channels", "9 32 64 128 256 128", "--log_every", "1",
@@ -939,6 +961,273 @@ def phase_scored(torch, B, RS, ckpt):
 
 
 # --------------------------------------------------------------------------
+# data preparation and evaluation
+# --------------------------------------------------------------------------
+
+
+def _same_bytes(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def _min_dist_at_least(torch, xyz, bound):
+    """True when no two points of ``xyz`` (a tensor on the card) lie
+    closer than ``bound``: a radius-``bound`` outlier pass (a grid of
+    ``bound`` cells, 27 neighbours each) must find every point alone."""
+    from gpcr_tpu_torch.structures.pointcloud import PointCloud
+
+    alone = PointCloud(xyz_w=xyz[None]).remove_outlier(bound, min_neighbors=1)
+    return int(alone.get_num_valid_points(0)) == 0
+
+
+def _render_traj(B, RS, traj, root, tag, common):
+    """``simple --skip_mesh`` on a trajectory saved as a camera file (the
+    CLI resamples it to its 12 views of 512²); returns (rgb, launches)."""
+    cam_path = os.path.join(WORK, "pipeline_out", f"{tag}.npz")
+    os.makedirs(os.path.dirname(cam_path), exist_ok=True)
+    traj.get_camera(fov=45.0, width_px=512, height_px=512).save(cam_path)
+    RS.LAUNCHES = 0
+    out, _ = B.main(["simple", *common(root, tag), "--skip_mesh",
+                     "--cam_mode", "file", "--cam_json", cam_path])["0001"]
+    return out["rgb"], RS.LAUNCHES
+
+
+def phase_pipeline(torch, B, RS, ckpt, scored):
+    """From a mesh to a scored render through the data-preparation tools:
+    preprocess_obj, sample_pcd (three methods), the native PLY reader, the
+    voxel <-> world round trip, ``simple --down_sample_ratio``, pcrender
+    on the round-tripped cloud, pipeline scoring, manual / spiral
+    trajectories, the z-buffer against the ray caster, tiled views."""
+    import numpy as np
+
+    from gpcr_tpu_torch import native_bindings as NB
+    from gpcr_tpu_torch.cli import pipeline as PL
+    from gpcr_tpu_torch.cli import sample_pcd as SP
+    from gpcr_tpu_torch.io import read_png, write_png
+    from gpcr_tpu_torch.io import ply as PLY
+    from gpcr_tpu_torch.structures.mesh import Mesh
+    from gpcr_tpu_torch.structures.pointcloud import PointCloud
+    from gpcr_tpu_torch.structures.trajectory import CameraTrajectory
+    from gpcr_tpu_torch.utils import media
+    from gpcr_tpu_torch.utils.preprocess_obj import preprocess_obj
+
+    src = os.path.join(WORK, "scored_ds", "0001")
+    root = os.path.join(WORK, "pipeline_ds")
+    asset = os.path.join(root, "0001")
+    rpth = os.path.join(WORK, "pipeline_out") + "/"
+
+    def common(r, tag):
+        return ["--id_list", "0001", "--dataset_root", r,
+                "--rpth", rpth + tag + "/", "--voxelized",
+                "--scale_factor", "448", "--fov", "45",
+                "--background_color", "1", "--device", "cuda"]
+
+    # 1. preprocess the asset into a new dataset root
+    obj = preprocess_obj(os.path.join(src, "0001.obj"), asset)
+    check(sorted(os.listdir(asset)) == ["0001.obj", "mat.mtl", "tex.png"],
+          f"preprocess_obj wrote {sorted(os.listdir(asset))}")
+
+    # 2. sample it with three methods
+    runs = (("uniform_quantized", 1_300_000, "pcd_0.ply"),
+            ("poisson_disk", POISSON_POINTS, "pcd_poisson.ply"),
+            ("uniform_camera", 800_000, "pcd_camera.ply"))
+    counts = {}
+    for method, n, name in runs:
+        t0 = time.time()
+        written = SP.main(["--dataset_root", root, "--id_list", "0001",
+                           "--method", method, "--num_points", str(n),
+                           "--out_name", name, "--workers", "1",
+                           "--device", "cuda"])
+        sec = time.time() - t0
+        path = os.path.join(asset, name)
+        check(written == [path], f"sample_pcd {method} wrote {written}")
+        counts[method] = len(PLY.read_ply(path)["xyz"])
+        log(f"[pipeline] sample_pcd {method} --num_points {n}: "
+            f"{counts[method]} points in {sec:.2f} s")
+    check(_same_bytes(os.path.join(asset, "pcd_0.ply"),
+                      os.path.join(src, "pcd_0.ply")),
+          "sample_pcd uniform_quantized differs from the scored cloud")
+    check(counts["poisson_disk"] == POISSON_POINTS,
+          f"poisson_disk gave {counts['poisson_disk']} points")
+    check(300_000 <= counts["uniform_camera"] <= 2_700_000,
+          f"uniform_camera gave {counts['uniform_camera']} points")
+    mesh = Mesh(obj, scale=1.0)
+    tri = mesh.vertices[mesh.triangles]
+    area = 0.5 * float(np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0],
+                                               tri[:, 2] - tri[:, 0]),
+                                      axis=-1).sum())
+    bound = 0.5 * np.sqrt(area / (2.0 * np.sqrt(3.0) * POISSON_POINTS))
+    poisson = PLY.read_ply(os.path.join(asset, "pcd_poisson.ply"))["xyz"]
+    check(_min_dist_at_least(torch, torch.from_numpy(poisson).cuda(), bound),
+          f"poisson_disk has two points closer than {bound:.3e}")
+    log(f"[pipeline] poisson_disk: no two of {len(poisson)} points closer "
+        f"than 0.5 r_max = {bound:.4e} (grid-checked on the card)")
+
+    # 3. the PLY readers on the 875K-point cloud
+    cloud_path = os.path.join(asset, "pcd_0.ply")
+    check(NB.get_ply_parser() is not None, "the native PLY parser is missing")
+    times = {}
+    for tag, read in (("native", NB.read_ply_native),
+                      ("python", PLY.read_ply_python)):
+        spans = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = read(cloud_path)
+            spans.append(time.perf_counter() - t0)
+        times[tag] = (min(spans), got)
+    nat, py = times["native"][1], times["python"][1]
+    check(sorted(nat) == sorted(py) and all(
+        np.array_equal(nat[k], py[k]) for k in py),
+        "the native PLY parser and the Python reader disagree")
+    log(f"[pipeline] PLY read of {len(py['xyz'])} points (best of 3): native "
+        f"{times['native'][0] * 1e3:.2f} ms, Python "
+        f"{times['python'][0] * 1e3:.2f} ms; arrays equal")
+
+    # 4. voxel -> world -> voxel, as a PCC codec round trip does
+    rt_root = os.path.join(WORK, "pipeline_rt")
+    rt_asset = os.path.join(rt_root, "0001")
+    os.makedirs(rt_asset)
+    for name in ("0001.obj", "mat.mtl", "tex.png"):
+        shutil.copy(os.path.join(asset, name), rt_asset)
+    world = os.path.join(WORK, "pipeline_out", "world.ply")
+    os.makedirs(os.path.dirname(world), exist_ok=True)
+    PL.rescale_run(cloud_path, world, 448)
+    PL.scale_run(world, os.path.join(rt_asset, "pcd_0.ply"), 448)
+    back = PLY.read_ply(os.path.join(rt_asset, "pcd_0.ply"))
+    rt_err = float(np.abs(back["xyz"] + 512.0 - py["xyz"]).max())
+    check(rt_err <= 1e-3 and np.array_equal(back["rgb"], py["rgb"]),
+          f"the round trip moved xyz by {rt_err} or changed rgb")
+    log(f"[pipeline] rescale_run / scale_run at factor 448: max |xyz + 512 - "
+        f"original| {rt_err:.3e}, rgb equal")
+
+    # 5. simple --down_sample_ratio on the card, scored against the mesh
+    pcd = PointCloud.from_ply(cloud_path, device="cuda")
+    down = pcd.voxel_downsampling(cell_width=2.0)
+    ms = _event_ms(torch, lambda: pcd.voxel_downsampling(cell_width=2.0), 5)
+    pcd_cpu = pcd.to("cpu")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        down_cpu = pcd_cpu.voxel_downsampling(cell_width=2.0)
+    cpu_ms = (time.perf_counter() - t0) / 3 * 1e3
+    n_down = int(down.get_num_valid_points(0))
+    check(torch.equal(down.valid_mask.cpu(), down_cpu.valid_mask),
+          "voxel_downsampling: the card's cells differ from the CPU's")
+    vox_err = max(float((getattr(down, k).cpu() - getattr(down_cpu, k))
+                        .abs().max()) for k in ("xyz_w", "rgb", "normal_w"))
+    check(vox_err <= 1e-5, f"voxel_downsampling card vs CPU: {vox_err}")
+    RS.LAUNCHES = 0
+    out, timing = B.main(["simple", *common(root, "down"),
+                          "--down_sample_ratio", "0.5"])["0001"]
+    launches = RS.LAUNCHES
+    s = timing["scores"]
+    log(f"[pipeline] voxel_downsampling (cell width 2) of {pcd.get_num_points()}"
+        f" points: {n_down} cells, {ms:.3f} ms on the card (CUDA events, "
+        f"mean of 5), {cpu_ms:.1f} ms on the CPU (host clock, mean of 3), "
+        f"card vs CPU max |d| {vox_err:.2e}; simple --down_sample_ratio 0.5: "
+        f"PSNR {s['psnr']:.4f} dB, MS-SSIM {s['msssim']:.6f}, ground truth "
+        f"{timing['gt_time']:.2f} s, blend kernel launches {launches}")
+    check(launches > 0, "simple --down_sample_ratio launched no blend kernel")
+    check(s["psnr"] >= SIMPLE_PSNR_FLOOR,
+          f"downsampled simple scores {s['psnr']} dB")
+
+    # 6. pcrender on the round-tripped cloud (voxel coordinates - 512,
+    # hence --input_offset 512)
+    RS.LAUNCHES = 0
+    out, timing = B.main(["pcrender", "--ckpt", ckpt, "--dup_cap",
+                          str(DUP_CAP), *common(rt_root, "rt"),
+                          "--input_offset", "512,512,512"])["0001"]
+    s = timing["scores"]
+    d_psnr = s["psnr"] - scored["pcrender"]["psnr"]
+    log(f"[pipeline] pcrender on the round-tripped cloud: PSNR "
+        f"{s['psnr']:.4f} dB ({d_psnr:+.4f} against the original cloud), "
+        f"MS-SSIM {s['msssim']:.6f}, dup_overflow {timing['dup_overflow']}, "
+        f"blend kernel launches {RS.LAUNCHES}")
+    check(RS.LAUNCHES > 0 and timing["dup_overflow"] == 0,
+          "pcrender on the round-tripped cloud")
+    check(abs(d_psnr) <= 0.1, f"the round trip moved pcrender by {d_psnr} dB")
+
+    # 7. the pipeline's scorers on the same directories
+    render_dir = rpth + "rt/0001_pcrender"
+    gt_dir = rpth + "rt/0001_mesh_gt"
+    ev = PL.evaluate_pair(render_dir, gt_dir, device="cuda")
+    check(ev["psnr"] == s["psnr"] and ev["ms_ssim"] == s["msssim"]
+          and ev["lpips"] is None,
+          f"evaluate_pair gives {ev}, the CLI {s}")
+    gt = np.stack([read_png(os.path.join(gt_dir, f"rgb_{i}.png"))
+                   for i in range(12)])[None].astype(np.float32) / 255.0
+    diff_dir = rpth + "rt_diff"
+    PL.save_difference_map(gt, out["rgb"], diff_dir)
+    n_diff = len(os.listdir(os.path.join(diff_dir, "diff")))
+    check(n_diff == 12, f"save_difference_map wrote {n_diff} PNGs")
+    log(f"[pipeline] evaluate_pair equals the CLI's scores (LPIPS skipped: "
+        f"no weights); save_difference_map wrote {n_diff} PNGs")
+
+    # 8. manual and spiral trajectories, the z-buffer, RGBD unprojection
+    traj = CameraTrajectory("manual", n_imgs=4, total=1,
+                            params={"eye": MANUAL_EYES}, device="cuda")
+    spiral = CameraTrajectory.get_spiral_trajectory(traj.cam_poses, 4, 0.2)
+    for tag, t in (("manual", traj), ("spiral", spiral)):
+        rgb, n = _render_traj(B, RS, t, root, tag, common)
+        check(n > 0 and bool(torch.isfinite(rgb).all())
+              and tuple(rgb.shape) == (1, 12, 512, 512, 3),
+              f"{tag} trajectory: {n} launches, shape {tuple(rgb.shape)}")
+        cover = float(((rgb - 1.0).abs() > 1e-3).any(-1).float().mean())
+        log(f"[pipeline] {tag} trajectory through simple: 12 views, blend "
+            f"kernel launches {n}, coverage {cover:.4f}")
+        check(cover > 0.01, f"{tag} trajectory shows nothing")
+    cam = traj.get_camera(fov=45.0, width_px=512, height_px=512)
+    cam = dataclasses.replace(cam, H_c2w=cam.H_c2w[:, :1],
+                              intrinsic=cam.intrinsic[:, :1])
+    spans = {}
+    for method in ("ray_cast", "rasterization"):
+        t0 = time.time()
+        spans[method] = (mesh.get_rgbd_image(cam, render_method=method),
+                         time.time() - t0)
+    rc, rs = spans["ray_cast"][0], spans["rasterization"][0]
+    h1, h2 = rc.hit_map.cpu() > 0.5, rs.hit_map.cpu() > 0.5
+    both = h1 & h2
+    rim = float((h1 ^ h2).float().mean())
+    d_err = float((rc.depth.cpu()[both] - rs.depth.cpu()[both]).abs().max())
+    c_err = float((rc.rgb.cpu()[both] - rs.rgb.cpu()[both]).abs().max())
+    n_err = float((rc.normal_w.cpu()[both] - rs.normal_w.cpu()[both])
+                  .abs().max())
+    log(f"[pipeline] one 512² view: ray cast {spans['ray_cast'][1]:.2f} s, "
+        f"z-buffer {spans['rasterization'][1]:.2f} s (host); hit "
+        f"{float(h1.float().mean()):.4f}, silhouette disagreement {rim:.5f}, "
+        f"max |d| depth {d_err:.2e}, rgb {c_err:.2e}, normal {n_err:.2e}")
+    check(rim < 0.02 and d_err <= 1e-3 and c_err < 2e-2 and n_err <= 1e-4,
+          "the z-buffer disagrees with the ray caster")
+    pc_gpu = rc.get_pcd()
+    pc_cpu = dataclasses.replace(rc, camera=rc.camera.to("cpu"),
+                                 rgb=rc.rgb.cpu(), depth=rc.depth.cpu(),
+                                 normal_w=rc.normal_w.cpu(),
+                                 hit_map=rc.hit_map.cpu()).get_pcd()
+    mask = pc_cpu.valid_mask
+    check(pc_gpu.device.type == "cuda"
+          and torch.equal(pc_gpu.valid_mask.cpu(), mask),
+          "get_pcd on the card: another valid mask")
+    pcd_err = max(float((torch.where(mask, getattr(pc_gpu, k).cpu(), 0.0)
+                         - torch.where(mask, getattr(pc_cpu, k), 0.0))
+                        .abs().max())
+                  for k in ("xyz_w", "captured_view_direction_w"))
+    log(f"[pipeline] get_pcd on the card vs the CPU: {int(mask.sum())} "
+        f"points, max |d| {pcd_err:.2e}")
+    check(pcd_err <= 1e-5, f"get_pcd card vs CPU: {pcd_err}")
+
+    # 9. the 12 round-tripped views, titled and tiled
+    views = out["rgb"][0].cpu().numpy()
+    sheet = media.tile_images([media.add_title_to_image(v, f"VIEW {i}")
+                               for i, v in enumerate(views)])
+    sheet_path = rpth + "views.png"
+    write_png(sheet_path, sheet)
+    check(sheet.shape == (3 * (512 + 24) + 4, 4 * 512 + 6, 3)
+          and read_png(sheet_path).shape == sheet.shape,
+          f"tiled sheet has shape {sheet.shape}")
+    log(f"[pipeline] 12 views titled and tiled into a {sheet.shape[1]}x"
+        f"{sheet.shape[0]} PNG")
+
+
+# --------------------------------------------------------------------------
 # training phases
 # --------------------------------------------------------------------------
 
@@ -1227,7 +1516,8 @@ def main() -> int:
                       work)
         del work
         del splats
-        run(phase_scored, torch, B, RS, ckpt)
+        scored = run(phase_scored, torch, B, RS, ckpt)
+        run(phase_pipeline, torch, B, RS, ckpt, scored)
         run(phase_grad_small, torch)
         train = run(phase_train, torch, RS, RV)
         run(phase_train_stages, torch, train["trainer"])

@@ -14,13 +14,17 @@ Layer map (same sub-packages as ``gpcr_tpu``):
                                 plain PyTorch versions), sparse conv
 - ``gpcr_tpu_torch.models``     SparseUNet / PCEncoder as ``nn.Module``s
 - ``gpcr_tpu_torch.structures`` Camera / CameraTrajectory / PointCloud /
-                                Ray / Mesh (ray-cast ground truth)
-- ``gpcr_tpu_torch.utils``      SH, rigid motion, CUDA-synchronised timing
+                                Ray / Mesh (ray-cast and z-buffer ground
+                                truth, sampling) / RGBDImage
+- ``gpcr_tpu_torch.utils``      SH, rigid motion, CUDA-synchronised timing,
+                                media (gif / mp4, tiling), OBJ cleaning
 - ``gpcr_tpu_torch.render``     PCMLRender / SimpleRender, checkpoints
 - ``gpcr_tpu_torch.train``      losses, Trainer, the data pipeline
 - ``gpcr_tpu_torch.io``         the port's own PLY and PNG readers/writers
-- ``gpcr_tpu_torch.cli``        the ``pcrender`` / ``simple`` benchmark CLI
-                                and the ``train`` CLI
+- ``gpcr_tpu_torch.cli``        the ``pcrender`` / ``simple`` benchmark CLI,
+                                the ``train`` CLI and the data tools
+                                (``sample_pcd``, ``rescale_ply``,
+                                ``pipeline``)
 
 The package imports ``torch`` and never ``jax``, and nothing of the
 ``gpcr_tpu`` package: it keeps its own copy of what it needs.

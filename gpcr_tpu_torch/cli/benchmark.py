@@ -17,8 +17,10 @@ scores directories an earlier run wrote. ``cam`` saves a trajectory.
 
 The parser keeps the JAX CLI's flags and adds ``--device`` (default
 ``cuda``; the CPU runs the blend's plain PyTorch version and must be asked
-for). Not ported yet: ``--shard`` (multi-device) and ``simple
---down_sample_ratio`` (voxel downsampling) raise NotImplementedError.
+for). ``simple --down_sample_ratio`` voxel-downsamples the cloud on the
+device with cells of width 2 for any ratio other than 1.0, as the JAX CLI
+does. Not ported yet: ``--shard`` (multi-device) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -182,10 +184,6 @@ def _avg_nn_dist(xyz: np.ndarray) -> float:
 
 
 def get_simple_renders(args, device):
-    if args.down_sample_ratio != 1.0:
-        raise NotImplementedError(
-            "--down_sample_ratio for the simple task (voxel downsampling) "
-            "is not ported yet")
     rdr = SimpleRender(
         voxelized=args.voxelized, scale_factor=args.scale_factor,
         offset=args.offset, config=_raster_config(args), warm_timing=True,
@@ -202,6 +200,13 @@ def get_simple_renders(args, device):
         if not args.metric_only:
             pcd = PointCloud.from_ply(f"{args.dataset_root}/{id}/pcd_0.ply",
                                       device=device)
+            if args.down_sample_ratio != 1.0:
+                # the reference's rule: any ratio other than 1.0 means
+                # voxel cells of width 2, whatever the ratio
+                n_in = pcd.get_num_points()
+                pcd = pcd.voxel_downsampling(cell_width=2.0)
+                print(f"[Info] voxel downsampling (cell width 2): {n_in} -> "
+                      f"{int(pcd.get_num_valid_points(0))} points")
             if pcd.normal_w is None:
                 # the reference estimates normals for the simple task
                 print("[Info] avg_dist:",

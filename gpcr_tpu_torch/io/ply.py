@@ -1,8 +1,11 @@
-"""PLY point-cloud reader/writer — pure numpy (the port's own copy of
-``gpcr_tpu/io/ply.py``, without its optional native parser).
+"""PLY point-cloud reader/writer (the port's own copy of
+``gpcr_tpu/io/ply.py``).
 
 Supports ascii and binary little/big endian, vertex properties x/y/z,
-red/green/blue (uint8 or float), nx/ny/nz.
+red/green/blue (uint8 or float), nx/ny/nz. ``read_ply`` takes the native
+parser (``native/ply_parser.cpp`` through ``native_bindings``) where it is
+built and accepts the file; the numpy reader below reads the rest (ASCII,
+list properties) and everything when there is no g++.
 """
 
 from __future__ import annotations
@@ -30,6 +33,16 @@ def read_ply(path: str) -> T.Dict[str, np.ndarray]:
     Returns dict with 'xyz' (N,3) float32 plus optional 'rgb' (N,3) float32
     in [0,1] and 'normal' (N,3) float32.
     """
+    from ..native_bindings import read_ply_native
+
+    out = read_ply_native(path)
+    if out is not None:
+        return out
+    return read_ply_python(path)
+
+
+def read_ply_python(path: str) -> T.Dict[str, np.ndarray]:
+    """``read_ply`` in numpy alone."""
     with open(path, "rb") as f:
         header, fmt, elems = _read_header(f)
         if "vertex" not in elems:

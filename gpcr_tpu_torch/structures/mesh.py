@@ -1,17 +1,20 @@
-"""Triangle meshes and the ray-cast ground-truth oracle (port of the
-training-path part of ``gpcr_tpu/structures/mesh.py``).
+"""Triangle meshes and the ray-cast ground-truth oracle (port of
+``gpcr_tpu/structures/mesh.py``).
 
 Host-side numpy, as in the JAX package: OBJ/MTL/texture loading, the
 preprocess (bbox centre to ``center_w``, uniform scale into
 [-scale, scale]), ``get_ray_intersection`` (barycentric weights
 (1-u-v, u, v), wrap-mode bilinear texture fetch at pixel centres,
 vertex-normal interpolation, miss -> zero normal, flip toward the ray
-origin) and ``sample_point_cloud`` for ``uniform`` and
-``uniform_quantized`` (round(xyz * scale) + offset, unique dedup).
+origin), the tiled z-buffer rasterizer, ``get_rgbd_image`` (ray cast or
+z-buffer; the RGBDImage's tensors lie on the camera's device) and
+``sample_point_cloud``: ``uniform``, ``uniform_quantized`` (round(xyz *
+scale) + offset, unique dedup), ``poisson_disk`` (weighted sample
+elimination of 5x uniform candidates, ``native/sample_elim.cpp``) and
+``uniform_camera`` (26 look-at cameras on a sphere, ray cast on the host,
+unprojected on ``device``).
 
-Not ported yet (each raises NotImplementedError): the z-buffer
-rasteriser and ``get_rgbd_image``, the ``poisson_disk`` and
-``uniform_camera`` sampling methods, and ``remesh``.
+Not ported: ``remesh`` (raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -20,11 +23,11 @@ import os
 import typing as T
 
 import numpy as np
+import torch
 
+from .camera import Camera, derive_camera_intrinsics
 from .pointcloud import PointCloud
 from .ray import Ray
-
-_LATER = "is not ported yet (ROADMAP queue 3: remaining structures)"
 
 # --------------------------------------------------------------------------
 # texture sampling (plib/uv_mapping.py UVMap semantics)
@@ -320,6 +323,154 @@ class Mesh:
         )
         return rgb, normals
 
+    # ---- offscreen z-buffer rasterization ----------------------------------
+
+    def _rasterize_view(self, H_w2c, K, width, height, tile: int = 32,
+                        znear: float = 1e-4):
+        """Tiled z-buffer triangle rasterizer for one view, in numpy on the
+        host (ground-truth frames without ray casting). Ties between
+        candidates go to the first (``np.argmin``).
+
+        Perspective-correct barycentrics; pixel centers at (+0.5, +0.5)
+        matching generate_camera_rays. Triangles with any vertex closer
+        than ``znear`` are dropped (no near-plane clipping — GT cameras
+        never slice the object). Returns (prim, bary, zbuf, hit) with
+        shapes (H, W), (H, W, 3), (H, W), (H, W)."""
+        V = self.vertices
+        Tr = self.triangles
+        Xc = V @ H_w2c[:3, :3].T + H_w2c[:3, 3]  # (Nv, 3) camera coords
+        tv = Xc[Tr]  # (F, 3, 3)
+        z = tv[..., 2]
+        ok = np.all(z > znear, axis=-1)
+        fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+        su = fx * tv[..., 0] / z + cx  # (F, 3) screen u
+        sv = fy * tv[..., 1] / z + cy
+        invz = 1.0 / z
+
+        # signed double-area in screen space; cull degenerates
+        area = (su[:, 1] - su[:, 0]) * (sv[:, 2] - sv[:, 0]) - (
+            su[:, 2] - su[:, 0]
+        ) * (sv[:, 1] - sv[:, 0])
+        ok &= np.abs(area) > 1e-12
+
+        prim = np.full((height, width), -1, np.int32)
+        zbuf = np.full((height, width), np.inf, np.float32)
+        bary = np.zeros((height, width, 3), np.float32)
+        fid_all = np.where(ok)[0]
+        if len(fid_all) == 0:
+            return prim, bary, zbuf, prim >= 0
+
+        # tile binning: a triangle lands in every tile its bbox touches
+        u0 = np.clip(np.floor(su[fid_all].min(1) - 0.5), 0, width - 1)
+        u1 = np.clip(np.ceil(su[fid_all].max(1) - 0.5), 0, width - 1)
+        v0 = np.clip(np.floor(sv[fid_all].min(1) - 0.5), 0, height - 1)
+        v1 = np.clip(np.ceil(sv[fid_all].max(1) - 0.5), 0, height - 1)
+        tx0, tx1 = (u0 // tile).astype(int), (u1 // tile).astype(int)
+        ty0, ty1 = (v0 // tile).astype(int), (v1 // tile).astype(int)
+
+        for ty in range((height + tile - 1) // tile):
+            rsel = (ty0 <= ty) & (ty <= ty1)
+            if not rsel.any():
+                continue
+            for tx in range((width + tile - 1) // tile):
+                sel = rsel & (tx0 <= tx) & (tx <= tx1)
+                if not sel.any():
+                    continue
+                f = fid_all[sel]  # (n,) candidate triangles
+                px0, py0 = tx * tile, ty * tile
+                tw = min(tile, width - px0)
+                th = min(tile, height - py0)
+                pu = (np.arange(tw) + px0 + 0.5)[None, None, :]  # centers
+                pv = (np.arange(th) + py0 + 0.5)[None, :, None]
+                # edge functions vs each triangle edge -> screen bary
+                au, av = su[f][:, :, None, None], sv[f][:, :, None, None]
+                w0 = (au[:, 1] - pu) * (av[:, 2] - pv) - (au[:, 2] - pu) * (
+                    av[:, 1] - pv
+                )
+                w1 = (au[:, 2] - pu) * (av[:, 0] - pv) - (au[:, 0] - pu) * (
+                    av[:, 2] - pv
+                )
+                w2 = (au[:, 0] - pu) * (av[:, 1] - pv) - (au[:, 1] - pu) * (
+                    av[:, 0] - pv
+                )
+                ar = area[f][:, None, None]
+                l0, l1, l2 = w0 / ar, w1 / ar, w2 / ar  # (n, th, tw)
+                inside = (l0 >= 0) & (l1 >= 0) & (l2 >= 0)
+                # perspective-correct: 1/z interpolates linearly in screen
+                iz = (
+                    l0 * invz[f][:, 0, None, None]
+                    + l1 * invz[f][:, 1, None, None]
+                    + l2 * invz[f][:, 2, None, None]
+                )
+                zf = np.where(inside & (iz > 0), 1.0 / np.maximum(iz, 1e-12),
+                              np.inf)
+                k = np.argmin(zf, axis=0)  # (th, tw) best candidate
+                ij = np.ogrid[:th, :tw]
+                zbest = zf[k, ij[0], ij[1]]
+                upd = zbest < zbuf[py0:py0 + th, px0:px0 + tw]
+                if not upd.any():
+                    continue
+                izk = np.maximum(iz[k, ij[0], ij[1]], 1e-12)
+                bt = np.stack(
+                    [
+                        (l[k, ij[0], ij[1]] * invz[f][k, i]) / izk
+                        for i, l in enumerate((l0, l1, l2))
+                    ],
+                    axis=-1,
+                )  # world-space barycentrics (n/z trick)
+                sl = (slice(py0, py0 + th), slice(px0, px0 + tw))
+                zbuf[sl] = np.where(upd, zbest, zbuf[sl])
+                prim[sl] = np.where(upd, f[k], prim[sl])
+                bary[sl] = np.where(upd[..., None], bt, bary[sl])
+        return prim, bary, zbuf, prim >= 0
+
+    def _rasterize_rendering(self, camera: Camera):
+        """RGBD through the z-buffer rasterizer: the same outputs as the
+        ray-cast method. Returns an RGBDImage (b, q, h, w, ·) on the
+        camera's device."""
+        H_c2w = camera.H_c2w.detach().cpu().numpy().astype(np.float32)
+        Ks = camera.intrinsic.detach().cpu().numpy().astype(np.float32)
+        b, q = H_c2w.shape[:2]
+        Hpx, Wpx = camera.height_px, camera.width_px
+        _, d = camera.generate_camera_rays(subsample=1, offsets="center")
+        d = d.detach().cpu().numpy().astype(np.float32)  # the normal flip
+
+        rgbs = np.zeros((b, q, Hpx, Wpx, 3), np.float32)
+        depths = np.full((b, q, Hpx, Wpx), np.inf, np.float32)
+        normals = np.zeros((b, q, Hpx, Wpx, 3), np.float32)
+        hits = np.zeros((b, q, Hpx, Wpx), np.float32)
+        for ib in range(b):
+            for iq in range(q):
+                H_w2c = np.linalg.inv(H_c2w[ib, iq])
+                prim, bary, zbuf, hit = self._rasterize_view(
+                    H_w2c, Ks[ib, iq], Wpx, Hpx)
+                prim_safe = np.where(hit, prim, 0).reshape(-1)
+                rgb, nrm = self._interp_attributes(
+                    prim_safe, bary.reshape(-1, 3), hit.reshape(-1),
+                    d[ib, iq].reshape(-1, 3))
+                rgbs[ib, iq] = rgb.reshape(Hpx, Wpx, 3)
+                normals[ib, iq] = nrm.reshape(Hpx, Wpx, 3)
+                depths[ib, iq] = zbuf
+                hits[ib, iq] = hit.astype(np.float32)
+        return _rgbd(camera, rgbs, depths, normals, hits)
+
+    def get_rgbd_image(self, camera: Camera, render_method: str = "ray_cast"):
+        """RGBDImage of the mesh from ``camera``: 'ray_cast' (the BVH, one
+        ray per pixel center; depth is the z-depth t * (d . z_cam)) or
+        'rasterization' (the z-buffer). inf depth where nothing was hit."""
+        if render_method == "rasterization":
+            return self._rasterize_rendering(camera)
+        if render_method != "ray_cast":
+            raise NotImplementedError(render_method)
+        o, d = camera.generate_camera_rays(subsample=1, offsets="center")
+        res = self.get_ray_intersection(Ray(origins_w=o, directions_w=d))
+        zaxis = camera.H_c2w.detach().cpu().numpy()[..., :3, 2]  # (b, q, 3)
+        dirs = d.detach().cpu().numpy()
+        cosz = np.sum(dirs * zaxis[:, :, None, None, :], axis=-1)
+        z = np.where(np.isfinite(res["ray_ts"]), res["ray_ts"] * cosz, np.inf)
+        return _rgbd(camera, res["ray_rgbs"], z, res["surface_normals_w"],
+                     res["hit_map"])
+
     # ---- sampling ----------------------------------------------------------
 
     def _sample_uniform(self, num_points: int, rng) -> T.Tuple[np.ndarray, ...]:
@@ -359,7 +510,11 @@ class Mesh:
     def sample_point_cloud(
         self, num_points: int, method: str = "poisson_disk", seed: int = 0,
         quantize_scale: float = 448.0, quantize_offset: float = 512.0,
+        device=None,
     ) -> PointCloud:
+        """A point cloud on ``device`` sampled from the surface with
+        ``np.random.RandomState(seed)`` (``uniform_camera``: a Latin
+        hypercube of that seed)."""
         rng = np.random.RandomState(seed)
         if method == "uniform":
             xyz, rgb, nrm = self._sample_uniform(num_points, rng)
@@ -374,15 +529,66 @@ class Mesh:
                 return_index=True,
             )
             xyz, rgb, nrm = q[idx], rgb[idx], nrm[idx]
-        else:
-            raise NotImplementedError(
-                f"sample_point_cloud method {method!r} " + _LATER)
-        return PointCloud.from_numpy(xyz, rgb, nrm)
+        elif method == "poisson_disk":
+            # weighted sample elimination of 5x candidates (Open3D's
+            # sample_points_poisson_disk with init_factor 5)
+            from ..native_bindings import sample_elimination
 
-    def get_rgbd_image(self, camera, render_method: str = "ray_cast"):
-        raise NotImplementedError("Mesh.get_rgbd_image " + _LATER)
+            xyz, rgb, nrm = self._sample_uniform(num_points * 5, rng)
+            v0 = self.vertices[self.triangles[:, 0]]
+            e1 = self.vertices[self.triangles[:, 1]] - v0
+            e2 = self.vertices[self.triangles[:, 2]] - v0
+            area = 0.5 * float(
+                np.sum(np.linalg.norm(np.cross(e1, e2), axis=-1)))
+            r_max = np.sqrt(area / (2.0 * np.sqrt(3.0) * max(num_points, 1)))
+            idx = sample_elimination(xyz, num_points, float(r_max))
+            xyz, rgb, nrm = xyz[idx], rgb[idx], nrm[idx]
+        elif method == "uniform_camera":
+            return self._sample_uniform_camera(num_points, seed, device)
+        else:
+            raise NotImplementedError(method)
+        return PointCloud.from_numpy(xyz, rgb, nrm, device=device)
+
+    def _sample_uniform_camera(self, num_points: int, seed: int, device):
+        """26 cameras at radius 2.5 looking at the origin (a Latin
+        hypercube over the sphere), each side x side pixels at 60 degrees
+        with side = ceil(sqrt(num_points / 26 / 0.3)): their hits, ray cast
+        on the host and unprojected on ``device``, with a valid mask."""
+        from scipy.stats import qmc
+
+        from ..utils import rigid_motion
+
+        n_cams = 26
+        side = int(np.ceil(np.sqrt(num_points / n_cams / 0.3)))
+        sph = qmc.LatinHypercube(d=2, seed=seed).random(n=n_cams)
+        theta = sph[:, 0] * 2 * np.pi
+        phi = np.arccos(1 - 2 * sph[:, 1])
+        r = 2.5
+        eyes = np.stack([r * np.sin(phi) * np.cos(theta),
+                         r * np.sin(phi) * np.sin(theta),
+                         r * np.cos(phi)], axis=-1).astype(np.float32)
+        H = rigid_motion.get_H_c2w_lookat(
+            torch.as_tensor(eyes, device=device),
+            torch.zeros((n_cams, 3), device=device),
+            torch.tensor([[0.0, 1.0, 0.0]], device=device).expand(n_cams, 3))
+        K = derive_camera_intrinsics(side, side, 60.0, device=device)
+        cam = Camera(H_c2w=H[None], intrinsic=K.expand(1, n_cams, 3, 3),
+                     width_px=side, height_px=side)
+        return self.get_rgbd_image(cam).get_pcd()
+
+
+def _rgbd(camera: Camera, rgb, depth, normal_w, hit_map):
+    """RGBDImage of host arrays, moved to the camera's device."""
+    from .rgbd_image import RGBDImage
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=camera.device)
+
+    return RGBDImage(rgb=dev(rgb), depth=dev(depth), camera=camera,
+                     normal_w=dev(normal_w), hit_map=dev(hit_map))
 
 
 def remesh(mesh: Mesh, atlas_cols: T.Optional[int] = None,
            margin: float = 0.1) -> Mesh:
-    raise NotImplementedError("remesh " + _LATER)
+    raise NotImplementedError(
+        "remesh is not ported yet (ROADMAP queue 3: remaining structures)")

@@ -1,5 +1,7 @@
-"""Camera trajectories (port of the ``circle`` and ``udlrfb`` modes and
-the camera-file mode of ``gpcr_tpu/structures/trajectory.py``)."""
+"""Camera trajectories (port of ``gpcr_tpu/structures/trajectory.py``):
+circle orbits, the fixed six ``udlrfb`` views, manual eye / up / look-at
+lists, ``assign``ed pose arrays, camera files, and the spiral
+perturbation of an existing path."""
 
 from __future__ import annotations
 
@@ -69,10 +71,13 @@ def generate_camera_circle_path(
 
 
 class CameraTrajectory:
-    """Pattern of camera poses. Modes: ``circle``, ``udlrfb`` (the fixed
-    six views) or a camera file (.npz / .json / .pt / .pth) whose path is
-    passed as ``mode``; the other modes of the JAX package (``assign``,
-    ``manual``, the spiral) raise NotImplementedError."""
+    """Pattern of camera poses on ``device``. Modes: ``assign``
+    (``params["H_c2w"]``, (q, 4, 4) or (b, q, 4, 4)), ``circle``,
+    ``udlrfb`` (the fixed six views), ``manual`` (eye / up / look-at
+    strings and a global frame) or a camera file (.npz / .json / .pt /
+    .pth) whose path is passed as ``mode``. The reference's removed modes
+    ('random', 'spiral', 'rect', ...) raise NotImplementedError, as in the
+    JAX package."""
 
     def __init__(
         self,
@@ -93,10 +98,28 @@ class CameraTrajectory:
             else np.random.RandomState(seed=rng_seed or 0)
         )
         self.params = params or {}
-        if mode == "circle":
+        if mode == "assign":
+            H = torch.tensor(np.asarray(self.params["H_c2w"], np.float32),
+                             device=device)
+            if H.dim() == 3:
+                self.n_imgs, self.cam_poses = H.shape[0], H[None]
+            elif H.dim() == 4:
+                self.total, self.n_imgs = H.shape[0], H.shape[1]
+                self.cam_poses = H
+            else:
+                raise ValueError(
+                    f"assign needs H_c2w of (q, 4, 4) or (b, q, 4, 4), got "
+                    f"{tuple(H.shape)}")
+        elif mode == "circle":
             self.cam_poses = self._set_circle()
         elif mode == "udlrfb":
             self.cam_poses = self._set_udlrfb()
+        elif mode == "manual":
+            self.cam_poses = self._set_manual()
+        elif mode in ("random", "spiral", "sketchfab_poisson", "rex_in",
+                      "rect", "basic", "grid", "polar_grid"):
+            raise NotImplementedError(
+                f"'{mode}' camera removed for simplicity (matches reference).")
         elif mode.lower().endswith((".pt", ".pth", ".npz", ".json")):
             camera = Camera.load(mode, device=device)
             if self.n_imgs is not None:
@@ -104,9 +127,7 @@ class CameraTrajectory:
             self.n_imgs = camera.H_c2w.shape[1]
             self.cam_poses = camera.H_c2w
         else:
-            raise NotImplementedError(
-                f"camera trajectory mode '{mode}' is not ported yet "
-                f"('circle', 'udlrfb' or a camera file)")
+            raise NotImplementedError(mode)
         if self.total is None:
             self.total = self.cam_poses.shape[0]
         if self.n_imgs is None:
@@ -153,10 +174,84 @@ class CameraTrajectory:
             out.append(torch.stack([ud[0], *lrfb[:4], ud[1]], dim=0))
         return torch.stack(out, dim=0)
 
+    def _set_manual(self) -> torch.Tensor:
+        """Poses from ``params``: 'eye' (one "x y z" string per view),
+        optional 'up' and 'look_at' lists (one string, or one per view;
+        default +y and the origin), and the global frame 't_c2w', 'y_c2w',
+        'z_c2w' ("x y z" strings) applied on the left."""
+        p = self.params
+        eyes = np.array([[float(i) for i in e.split(" ")] for e in p["eye"]],
+                        np.float32).reshape(-1, 3)
+        if self.n_imgs != eyes.shape[0]:
+            raise ValueError(f"manual: n_imgs {self.n_imgs} but "
+                             f"{eyes.shape[0]} eyes")
+
+        def _vec_list(key, default):
+            v = p.get(key)
+            if v is None:
+                return np.broadcast_to(np.array(default, np.float32),
+                                       eyes.shape)
+            v = np.array([[float(i) for i in x.split(" ")] for x in v],
+                         np.float32)
+            return np.broadcast_to(v, eyes.shape) if v.shape[0] == 1 else v
+
+        def _vec(key, default):
+            v = p.get(key)
+            if v is None:
+                return np.array(default, np.float32)
+            return np.array([float(i) for i in v.split(" ")], np.float32)
+
+        def dev(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+
+        R_g = rigid_motion.construct_coord_frame(
+            z=dev(_vec("z_c2w", [0, 0, 1])), y=dev(_vec("y_c2w", [0, 1, 0])))
+        H_g = torch.zeros((4, 4), dtype=torch.float32, device=self.device)
+        H_g[:3, :3] = R_g
+        H_g[:3, 3] = dev(_vec("t_c2w", [0, 0, 0]))
+        H_g[3, 3] = 1.0
+        H = rigid_motion.get_H_c2w_lookat(
+            dev(eyes), dev(_vec_list("look_at", [0, 0.0, 0])),
+            dev(_vec_list("up", [0, 1.0, 0])), invert_y=True)
+        H = H_g[None] @ H
+        return H[None].repeat(self.total or 1, 1, 1, 1)
+
+    @staticmethod
+    def get_spiral_trajectory(H_c2w: torch.Tensor, period: int,
+                              radius: float) -> "CameraTrajectory":
+        """An ``assign`` trajectory whose camera centers spiral around an
+        existing (b, q, 4, 4) path (q >= 2): each center moves by
+        radius * (cos, sin) of an angle stepping through ``period`` values
+        over [0, 2 pi], along the x / y axes of a frame whose z is the
+        path's direction of travel; orientations are kept."""
+        b, q = H_c2w.shape[:2]
+        if q < 2:
+            raise ValueError("a spiral needs a path of at least 2 poses")
+        cs, cs_next = H_c2w[:, :-1, :3, 3], H_c2w[:, 1:, :3, 3]
+        dz = torch.cat([cs_next - cs, (cs_next - cs)[:, -1:]], dim=1)
+        dz = dz / torch.clamp(torch.linalg.norm(dz, dim=-1, keepdim=True),
+                              min=1e-9)
+        dy = torch.zeros_like(dz)
+        dy[..., 1] = 1.0
+        frames = rigid_motion.construct_coord_frame(z=dz, y=dy)
+        dxs, dys = frames[..., 0], frames[..., 1]
+        thetas = torch.linspace(0.0, 2 * math.pi, period,
+                                device=H_c2w.device)
+        reps = (q + period - 1) // period
+        xs = (torch.cos(thetas) * radius).repeat(reps)[:q]
+        ys = (torch.sin(thetas) * radius).repeat(reps)[:q]
+        newH = H_c2w.clone()
+        newH[:, :, :3, 3] += dxs * xs.reshape(1, q, 1) + dys * ys.reshape(1, q, 1)
+        return CameraTrajectory(mode="assign", n_imgs=None, total=None,
+                                params=dict(H_c2w=newH.cpu().numpy()),
+                                device=H_c2w.device)
+
     def get_camera(self, fov: float, width_px: int, height_px: int) -> Camera:
         K = derive_camera_intrinsics(width_px, height_px, fov,
                                      device=self.cam_poses.device)
         H = self.cam_poses
+        if H.dim() == 3:
+            H = H[None]
         b, q = H.shape[:2]
         return Camera(
             H_c2w=H,

@@ -1,9 +1,12 @@
-"""SE(3) / SO(3) helpers the camera path needs (port of the matching
-functions of ``gpcr_tpu/utils/rigid_motion.py``: the circle path, the
-rigid inverse, and the geodesic interpolation behind
-``Camera.uniformly_sample``)."""
+"""SE(3) / SO(3) helpers (port of ``gpcr_tpu/utils/rigid_motion.py``):
+Rodrigues minimal rotation, Gram-Schmidt frames, look-at poses, the rigid
+inverse, geodesic pose interpolation and random camera poses on a
+spherical shell."""
 
 from __future__ import annotations
+
+import math
+import typing as T
 
 import torch
 
@@ -41,6 +44,28 @@ def construct_coord_frame(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y = y / torch.linalg.norm(y, dim=-1, keepdim=True)
     x = x / torch.linalg.norm(x, dim=-1, keepdim=True)
     return torch.stack([x, y, z], dim=-1)
+
+
+def get_H_c2w_lookat(pinhole_location_w, look_at_w, up_w,
+                     invert_y: bool = True) -> torch.Tensor:
+    """Camera pose (*, 4, 4) H_c2w from eye / look-at / up (each (*, 3),
+    broadcast together; tensors or arrays). ``invert_y`` flips the y axis
+    to image coordinates (x right, y down). The pose lies on the eye's
+    device when the eye is a tensor."""
+    dev = (pinhole_location_w.device
+           if isinstance(pinhole_location_w, torch.Tensor) else None)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    eye, look, up = f32(pinhole_location_w), f32(look_at_w), f32(up_w)
+    eye, look, up = torch.broadcast_tensors(eye, look, up)
+    R = construct_coord_frame(z=look - eye, y=(-up if invert_y else up))
+    H = torch.zeros((*R.shape[:-2], 4, 4), dtype=torch.float32, device=dev)
+    H[..., :3, :3] = R
+    H[..., :3, 3] = eye
+    H[..., 3, 3] = 1.0
+    return H
 
 
 def inv_homogeneous(Hs: torch.Tensor) -> torch.Tensor:
@@ -98,3 +123,36 @@ def interp_homogeneous(H0: torch.Tensor, H1: torch.Tensor, t) -> torch.Tensor:
     H[..., :3, 3] = pt
     H[..., 3, 3] = 1.0
     return H
+
+
+def generate_random_camera_poses(
+    n: int,
+    min_r: float,
+    max_r: float,
+    max_angle: float = 180.0,
+    local_max_angle: float = 3.0,
+    max_translate_ratio: float = 1.0,
+    generator: T.Optional[torch.Generator] = None,
+    device=None,
+) -> torch.Tensor:
+    """Random look-at camera poses (n, 4, 4) H_c2w on a spherical shell:
+    radius uniform in [min_r, max_r), azimuth in [0, 2 pi), elevation
+    within +-max_angle / 2 degrees (max_angle clipped to [0, 180]), looking
+    at a point uniform in +-deg2rad(local_max_angle) * max_translate_ratio
+    per axis, up +y. The draws come from ``generator`` (on the CPU) and
+    differ from the JAX package's ``jax.random`` bits; their ranges do
+    not."""
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=generator) * (hi - lo) + lo
+
+    r = uniform((n,), min_r, max_r)
+    theta = uniform((n,), 0.0, 2 * math.pi)
+    max_phi = math.radians(min(max(max_angle, 0.0), 180.0)) / 2.0
+    phi = uniform((n,), -max_phi, max_phi)
+    eye = torch.stack([r * torch.cos(phi) * torch.cos(theta),
+                       r * torch.cos(phi) * torch.sin(theta),
+                       r * torch.sin(phi)], dim=-1)
+    jitter = math.radians(local_max_angle)
+    look = uniform((n, 3), -jitter, jitter) * max_translate_ratio
+    return get_H_c2w_lookat(eye.to(device), look.to(device),
+                            torch.tensor([0.0, 1.0, 0.0], device=device))

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card (``gpu`` marker): the serving
 stream blend (with its warp-level culling), the contributor-count
 forward and the aligned all-tiles blend (both walking a chunk ring), the
-replay backward (tiles split into segments).
+replay backward (tiles split into segments); and the data path's torch
+ops on the card against the CPU (voxel downsampling, outlier removal,
+RGBD unprojection).
 
 Each test skips without a CUDA device; the decision is taken inside the
 ``cuda`` fixture, never at import. The file imports no JAX, so it also
@@ -21,6 +23,8 @@ order; the second limit holds the typical row, the first the worst); card vs CPU
 1e-3 of each input's largest gradient.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +34,8 @@ from gpcr_tpu_torch.ops import rasterize_aligned as TRA
 from gpcr_tpu_torch.ops import rasterize_stream as TRS
 from gpcr_tpu_torch.ops import rasterize_stream_vjp as TV
 from gpcr_tpu_torch.render.renderer import pin_fp32
+from gpcr_tpu_torch.structures.camera import derive_camera_intrinsics
+from gpcr_tpu_torch.utils import rigid_motion as TRM
 
 from torch_streams import aligned_layout, ring_tiles, tile_stream
 
@@ -517,3 +523,65 @@ def test_aligned_kernel_ring_matches_plain(cuda, channels, chunk):
         len(lengths), 3, channels, config, with_contrib=True)
     _assert_split_tile(cnt, lengths, chunk)
     assert bool((first[0][5] == 0).all()) and bool((first[1][5] == 1).all())
+
+
+def _padded_cloud(n=20000, seed=3):
+    """A seeded batch-2 cloud on a voxel grid (sphere shells at scale
+    448), the second item padded with invalid zeros."""
+    from gpcr_tpu_torch.structures.pointcloud import PointCloud
+
+    rng = np.random.RandomState(seed)
+    v = rng.randn(2, n, 3)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    xyz = np.round(v * 0.8 * 448 * rng.uniform(0.9, 1.0, (2, n, 1)) + 512)
+    vm = np.ones((2, n, 1), bool)
+    vm[1, n - n // 5:] = False
+    xyz[1, n - n // 5:] = 0.0
+    return PointCloud(
+        xyz_w=torch.from_numpy(xyz.astype(np.float32)),
+        rgb=torch.from_numpy(rng.rand(2, n, 3).astype(np.float32)),
+        normal_w=torch.from_numpy(v.astype(np.float32)),
+        valid_mask=torch.from_numpy(vm))
+
+
+@pytest.mark.gpu
+def test_voxel_downsampling_on_the_card_matches_cpu(cuda):
+    """The same cells on the card: equal valid masks, xyz / rgb / normal
+    within 1e-5 (index_add_ sums in another order there)."""
+    pcd = _padded_cloud()
+    want = pcd.voxel_downsampling(cell_width=2.0)
+    got = pcd.to(cuda).voxel_downsampling(cell_width=2.0)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.valid_mask.cpu(), want.valid_mask)
+    assert 0 < int(want.valid_mask.sum()) < int(pcd.get_valid_mask().sum())
+    for k in ("xyz_w", "rgb", "normal_w"):
+        err = (getattr(got, k).cpu() - getattr(want, k)).abs().max()
+        assert float(err) <= 1e-5, (k, float(err))
+    kept = pcd.to(cuda).remove_outlier(radius=2.0, min_neighbors=4, bidx=1)
+    assert torch.equal(kept.valid_mask.cpu(), pcd.remove_outlier(
+        radius=2.0, min_neighbors=4, bidx=1).valid_mask)
+
+
+@pytest.mark.gpu
+def test_get_pcd_on_the_card_matches_cpu(cuda):
+    """A mesh's ray-cast RGBD unprojected on the card and on the CPU:
+    equal masks, points and directions within 1e-5."""
+    from gpcr_tpu_torch.structures.camera import Camera
+    from gpcr_tpu_torch.train.data import synthetic_scene
+
+    cam = Camera(H_c2w=TRM.get_H_c2w_lookat(
+        torch.tensor([[0.3, -0.2, -2.2], [2.0, 0.5, 0.3]]),
+        torch.zeros(2, 3), torch.tensor([[0.0, 1.0, 0.0]] * 2))[None],
+        intrinsic=derive_camera_intrinsics(64, 48, 55.0).expand(1, 2, 3, 3),
+        width_px=64, height_px=48)
+    rgbd = synthetic_scene(2).get_rgbd_image(cam)
+    want = rgbd.get_pcd()
+    got = dataclasses.replace(rgbd, camera=cam.to(cuda)).get_pcd()
+    assert got.device.type == "cuda"
+    mask = want.valid_mask
+    assert torch.equal(got.valid_mask.cpu(), mask) and 0 < int(mask.sum())
+    for k in ("xyz_w", "rgb", "normal_w", "captured_z_direction_w",
+              "captured_view_direction_w"):
+        g = torch.where(mask, getattr(got, k).cpu(), 0.0)
+        w = torch.where(mask, getattr(want, k), 0.0)
+        assert float((g - w).abs().max()) <= 1e-5, k

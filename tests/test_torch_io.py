@@ -46,7 +46,10 @@ def test_port_imports_nothing_of_the_jax_package():
     walked = {os.path.relpath(p, REPO) for p in files}
     for name in ("metrics/psnr.py", "metrics/ssim.py", "metrics/lpips.py",
                  "cli/pic_metrics.py", "cli/convert_lpips.py",
-                 "ops/rasterize_aligned.py", "structures/reconstruct.py"):
+                 "ops/rasterize_aligned.py", "structures/reconstruct.py",
+                 "structures/rgbd_image.py", "utils/media.py",
+                 "utils/preprocess_obj.py", "cli/rescale_ply.py",
+                 "cli/pipeline.py", "cli/sample_pcd.py"):
         assert os.path.join("gpcr_tpu_torch", name) in walked, name
     bad = [f"{os.path.relpath(p, REPO)}:{line} imports {root}"
            for p in files for root, line in _imported_roots(p)

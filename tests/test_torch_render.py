@@ -33,6 +33,8 @@ TRD.pin_fp32()  # parity precision: full-float32 matmuls, no TF32 on a card
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 OUTPUTS = ("rgb", "xyz_w", "hitmap", "normal")
+CAM16 = {"fov": 60, "width_px": 16, "height_px": 16, "mode": "circle",
+         "n_imgs": 1, "d": 0, "r": 3, "center_angles": [90, 0]}
 
 
 def synthetic_cloud(n=600, seed=0, grid=128):
@@ -231,14 +233,38 @@ def test_load_pcml_reads_run_options(tmp_path, name):
                                   want["color_encoder.conv0.kernel"].numpy())
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     base = ["--rpth", str(tmp_path) + "/", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="shard"):
         TB.main(["simple", "--shard", "views"] + base)
     with pytest.raises(NotImplementedError, match="shard"):
         TB.main(["cam", "--shard", "tiles"] + base)
-    with pytest.raises(NotImplementedError, match="down_sample_ratio"):
-        TB.main(["simple", "--down_sample_ratio", "0.5"] + base)
+    # --down_sample_ratio is ported: any ratio other than 1.0 renders the
+    # cloud voxel-downsampled with cells of width 2, as the JAX CLI does
+    # (whose voxel_downsampling needs 64-bit keys: jax_enable_x64)
+    xyz, rgb, sf = synthetic_cloud(n=500, seed=3)
+    nrm = (xyz - 512.0) / np.linalg.norm(xyz - 512.0, axis=1, keepdims=True)
+    os.makedirs(tmp_path / "ds" / "a")
+    ply = str(tmp_path / "ds" / "a" / "pcd_0.ply")
+    write_ply(ply, xyz, rgb, nrm)
+    seen = []
+    real = TB.SimpleRender.render
+    monkeypatch.setattr(TB.SimpleRender, "render", lambda self, pcd, *a, **k:
+                        seen.append(pcd) or real(self, pcd, *a, **k))
+    monkeypatch.setattr(TB, "_camera_for", lambda args, task, device: (
+        TRD.generate_cam(CAM16, device=device), CAM16))
+    TB.main(["simple", "--down_sample_ratio", "0.5", "--skip_mesh",
+             "--id_list", "a", "--dataset_root", str(tmp_path / "ds"),
+             "--voxelized", "--scale_factor", str(sf)] + base)
+    with jax.enable_x64(True):
+        want = JPointCloud.from_ply(ply).voxel_downsampling(cell_width=2.0)
+    got = seen[0]
+    np.testing.assert_array_equal(got.valid_mask.numpy(),
+                                  np.asarray(want.valid_mask))
+    assert 0 < int(got.get_num_valid_points(0)) < len(xyz)
+    for k, tol in (("xyz_w", 1e-6), ("rgb", 1e-5), ("normal_w", 1e-5)):
+        np.testing.assert_allclose(getattr(got, k).numpy(),
+                                   np.asarray(getattr(want, k)), atol=tol)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TB.main(["simple", "--skip_mesh", "--rpth", str(tmp_path) + "/"])

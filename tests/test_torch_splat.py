@@ -208,11 +208,16 @@ def test_circle_trajectory_and_raster_params_match_jax():
         _close(trp[k], jrp[k])
     for k in ("tanfov", "height", "width", "sh_degree"):
         assert trp[k] == jrp[k], k
-    # the fixed six views, and a mode that is not ported yet
+    # the fixed six views, and manual eyes in a global frame
     radii = {"min_r": 3, "max_r": 4}
     _close(TT.CameraTrajectory("udlrfb", n_imgs=6, total=1,
                                params=radii).cam_poses,
            JT.CameraTrajectory("udlrfb", n_imgs=6, total=1,
                                params=radii).cam_poses)
-    with pytest.raises(NotImplementedError):
-        TT.CameraTrajectory("manual", n_imgs=6, total=1)
+    manual = {"eye": ["0 0 3", "2.5 0.4 0", "-1 2 1.5"], "up": ["0 1 0"],
+              "look_at": ["0.1 0 0"], "t_c2w": "0.2 0 0.1",
+              "y_c2w": "0 1 0.2", "z_c2w": "0.1 0 1"}
+    _close(TT.CameraTrajectory("manual", n_imgs=3, total=2,
+                               params=manual).cam_poses,
+           JT.CameraTrajectory("manual", n_imgs=3, total=2,
+                               params=manual).cam_poses)
