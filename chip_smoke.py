@@ -69,9 +69,23 @@ Phases, each printing what it found:
    z-buffer against the ray caster on one 512² view (tests/test_mesh.py's
    bars) and ``RGBDImage.get_pcd`` on the card against the CPU (1e-5);
    the 12 views titled and tiled into one PNG;
-9. gradients: one small scene through the differentiable rasterizer on the
+9. tools: the structures and utilities on the scored cloud (875,060
+   points) and the learned cell's grid, each device function against the
+   CPU: the surfel z-buffer (12 views 512², three shadings); the k points
+   nearest to the 16,384 rays of one 128² view against ``GridRayQuery``
+   (radius 2) and against the CPU on 512 rays, with projection, uv
+   correspondence and sampling, capture geometry; ``interpolate_trilinear``
+   and ``prune`` on the 717,176-voxel grid with 32 channels; ``get_mesh``
+   voxel (cell 4, all points), Poisson (depth 7, a 200K subsample; closed,
+   near the cloud, its ray cast against the surfel hits) and alpha (a 50K
+   subsample); ``remesh_file`` of the scored OBJ; Camera slicing and frame
+   meshes; a PointersectRecord from a ray cast back to its points; 1M vMF
+   samples and per-row shuffles; one ColorCorrector step; golden view 0
+   with ``settings.debug`` under ``utils/debug.trace`` (the serving
+   kernel in the trace, a NaN mean raising FloatingPointError, ``timed``);
+10. gradients: one small scene through the differentiable rasterizer on the
    card against the CPU path;
-10. training slice: the ``train`` CLI at the deployed width on synthetic
+11. training slice: the ``train`` CLI at the deployed width on synthetic
    scenes (batch 1, 200K points, 2 views at 512², scale factor 448) takes
    4 steps, then resumes for a 5th; both training launch counters are
    reset just before and must grow; losses finite, parameters moved, no
@@ -79,7 +93,7 @@ Phases, each printing what it found:
    against their plain versions at this path's view-0 shape, and the
    rasterizer's forward + backward is timed at 800K analytic gaussians,
    1024², C = 3 (each shape with its ``[tile-work]`` line);
-11. one JSON line describing the four kernels, then the result line.
+12. one JSON line describing the four kernels, then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
@@ -123,6 +137,20 @@ DUP_CAP = 256
 # sample_pcd's poisson_disk at a quarter of the CLI's 800K points (1M
 # candidates through the elimination) to hold the pipeline phase's time
 POISSON_POINTS = 200_000
+# phase_tools at its users' sizes: the surfel z-buffer at 12 views 512²;
+# the k nearest points to the rays of one 128² view, 256 rays per chunk,
+# 512 of them again on the CPU; the learned cell's 800K points; Poisson of
+# a 200K subsample (np.add.at and the depth-7 grid's tetrahedra on the
+# host) and the alpha shape of a 50K one (scipy's Delaunay) instead of all
+# 875K points; 1M vMF directions
+TOOL_VIEWS, TOOL_RES, KNN_RES, KNN_CHUNK, KNN_CPU_RAYS = 12, 512, 128, 256, 512
+LEARNED_POINTS, LEARNED_VOXELS = 800_000, 717_176
+POISSON_SUBSAMPLE, ALPHA_SUBSAMPLE, VMF_SAMPLES = 200_000, 50_000, 1_000_000
+# rays of the k-nearest view whose surfel render hits: the share of them
+# that must have a point within the radius (a 128² pixel spans 7-9 voxels
+# of a surface sampled about once per voxel, so only silhouette pixels may
+# miss)
+KNN_COVER = 0.9
 MANUAL_EYES = ["0 0.3 3", "3 0.3 0", "0 -0.3 -3", "-3 -0.3 0"]
 TRAIN_ARGS = ["--batch_size", "1", "--n_points", "200000", "--n_views", "2",
               "--hw", "512", "--scale_factor", "448", "--warmup", "1",
@@ -565,8 +593,9 @@ def _render_fused(torch, sp, views, use_pallas, with_normal=True):
             use_pallas=use_pallas)
 
 
-def _event_ms(torch, fn, reps):
-    fn()
+def _event_ms(torch, fn, reps, warmup=1):
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1228,6 +1257,535 @@ def phase_pipeline(torch, B, RS, ckpt, scored):
 
 
 # --------------------------------------------------------------------------
+# structures and utilities
+# --------------------------------------------------------------------------
+
+
+def _ring_camera(torch, n, res, centre, radius, dev):
+    """``n`` look-at views of ``res``² (fov 45) on a circle of ``radius``
+    around ``centre`` (0.2 radius above it), view 0 on the +x side."""
+    from gpcr_tpu_torch.structures.camera import Camera, derive_camera_intrinsics
+    from gpcr_tpu_torch.utils import rigid_motion as RM
+
+    ang = torch.arange(n, dtype=torch.float64) * (2 * math.pi / n)
+    c = torch.tensor(centre, dtype=torch.float64)
+    eyes = torch.stack([c[0] + radius * torch.cos(ang),
+                        torch.full_like(ang, float(c[1]) + 0.2 * radius),
+                        c[2] + radius * torch.sin(ang)], -1).float()
+    H = RM.get_H_c2w_lookat(eyes.to(dev), c.float().expand(n, 3).to(dev),
+                            torch.tensor([[0.0, 1.0, 0.0]], device=dev).expand(n, 3))
+    K = derive_camera_intrinsics(res, res, 45.0, device=dev)
+    return Camera(H_c2w=H[None], intrinsic=K.expand(1, n, 3, 3), width_px=res,
+                  height_px=res)
+
+
+def _knn_agree(idx_a, d_a, idx_b, d_b, compare, tol):
+    """Slots of two k-nearest answers (rows sorted by distance) where
+    ``compare`` holds: distances within ``tol`` and indices equal, except
+    where the distance ties (within ``tol``) with a neighbouring slot of its
+    row, which either answer may order either way. Returns (slots
+    compared, tie swaps, max |d|) and fails on any other difference."""
+    import numpy as np
+
+    err = float(np.abs(d_a - d_b)[compare].max()) if compare.any() else 0.0
+    check(err <= tol, f"k-nearest distances differ by {err} (limit {tol})")
+    tie = np.zeros_like(compare)
+    gap = np.abs(np.diff(d_a, axis=-1)) <= tol
+    tie[..., 1:] |= gap
+    tie[..., :-1] |= gap
+    tie[..., -1] = True  # the k-th place may tie with the (k+1)-th
+    differ = compare & (idx_a != idx_b)
+    check(not (differ & ~tie).any(),
+          f"k-nearest indices differ at {int((differ & ~tie).sum())} slots "
+          "that tie with no other")
+    return int(compare.sum()), int(differ.sum()), err
+
+
+def _edge_counts(f):
+    import numpy as np
+
+    f = np.asarray(f)
+    e = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [0, 2]]]), 1)
+    return np.unique(e, axis=0, return_counts=True)[1]
+
+
+def _golden_view(torch, dev, debug, nan_at=None):
+    """View 0 of the golden ``simple`` render (12 circle views, 512² x2) as
+    one ``rasterize_gaussians`` call with ``settings.debug``, the CLI's
+    raster config and the x2 downscale folded into the blend as
+    ``render_views_fused`` does; with ``nan_at`` that gaussian's mean is
+    NaN. Returns a function that renders it: the (9, 512, 512) image."""
+    from gpcr_tpu_torch.io import read_ply
+    from gpcr_tpu_torch.ops import rasterize as R
+    from gpcr_tpu_torch.render import renderer as RD
+    from gpcr_tpu_torch.utils import sh as sh_utils
+
+    golden = os.path.join(HERE, "tests", "golden")
+    with open(os.path.join(golden, "manifest.json")) as f:
+        m = json.load(f)
+    cloud = read_ply(os.path.join(golden, "pcd_0.ply"))
+    xyz = torch.from_numpy(cloud["xyz"]).to(dev)
+    rgb = torch.from_numpy(cloud["rgb"]).to(dev)
+    n, sf = xyz.shape[0], m["scale_factor"]
+    cam = RD.generate_cam({"fov": m["fov"], "width_px": 512, "height_px": 512,
+                           "mode": "circle", "n_imgs": 12, "d": 0, "r": 3,
+                           "center_angles": [90, 0], "alt_yaxis": False},
+                          device=dev)
+    means = RD.pcgc_rescale(xyz, 512, sf)
+    if nan_at is not None:
+        means[nan_at, 0] = float("nan")
+    shs = torch.cat([sh_utils.RGB2SH(rgb)[:, None, :],
+                     torch.zeros((n, 12, 3), device=dev)], dim=1)
+    bg3 = torch.ones((3,), device=dev)
+    rp = RD.get_rasterize_param_from_camera(cam, m["fov"], bg=bg3, sh_degree=1,
+                                            super_sample_rate=2)
+    feats, bg = RD.fuse_view_features(rp["campos"][0], means, shs,
+                                      torch.zeros_like(means), bg3, 1, False)
+    settings = R.GaussianRasterizationSettings(
+        image_height=rp["height"], image_width=rp["width"],
+        tanfovx=rp["tanfov"], tanfovy=rp["tanfov"], bg=bg, scale_modifier=1.0,
+        viewmatrix=rp["view_t"][0], projmatrix=rp["full_t"][0], sh_degree=1,
+        campos=rp["campos"][0], debug=debug)
+    config = R.RasterizeConfig(max_dup_per_gaussian=16, chunk_size=256,
+                               opacity_radius=True, downscale=2)
+    kw = dict(scales=torch.ones((n, 3), device=dev) * (m["sigma"] / sf),
+              rotations=torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+              .expand(n, 4), colors_precomp=feats, config=config)
+    opacity = torch.ones((n,), device=dev)
+    return lambda: R.rasterize_gaussians(means, opacity, settings, **kw)[0]
+
+
+def phase_tools(torch, RS):
+    """The structures and utilities of the port on the card at the size
+    their users run them: the surfel z-buffer, ray-point geometry against
+    ``GridRayQuery``, sparse trilinear interpolation and pruning, meshing,
+    ``remesh_file``, Camera slicing and frame meshes, PointersectRecord,
+    vMF sampling, ColorCorrector, and the rasterizer's ``debug`` flag under
+    ``utils/debug.trace``; each device function against the CPU."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from gpcr_tpu_torch import native_bindings as NB
+    from gpcr_tpu_torch.cli.profile_pcrender import synthetic_cloud
+    from gpcr_tpu_torch.io import read_png
+    from gpcr_tpu_torch.ops import sparse as TSP
+    from gpcr_tpu_torch.structures import mesh as TM
+    from gpcr_tpu_torch.structures.camera import Camera
+    from gpcr_tpu_torch.structures.color_corrector import ColorCorrector
+    from gpcr_tpu_torch.structures.pointcloud import PointCloud
+    from gpcr_tpu_torch.structures.pointersect_record import PointersectRecord
+    from gpcr_tpu_torch.structures.ray import Ray
+    from gpcr_tpu_torch.utils import debug as DBG
+    from gpcr_tpu_torch.utils import geometry as G
+    from gpcr_tpu_torch.utils import sampling as SMP
+    from gpcr_tpu_torch.utils.timing import timed
+
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    stats = {}
+    src = os.path.join(WORK, "scored_ds", "0001")
+    out_dir = os.path.join(WORK, "tools_out")
+    os.makedirs(out_dir, exist_ok=True)
+    pcd = PointCloud.from_ply(os.path.join(src, "pcd_0.ply"), device=dev)
+    pcd_cpu = pcd.to(cpu)
+    n_pts = pcd.get_num_points()
+    xyz_np = pcd_cpu.xyz_w[0].numpy()
+    lo, hi = xyz_np.min(0), xyz_np.max(0)
+    centre = ((lo + hi) / 2).tolist()
+    radius = 3.2 * float((hi - lo).max()) / 2
+
+    # 1. the surfel z-buffer: 12 views, raw; one view each of the shadings
+    cam = _ring_camera(torch, TOOL_VIEWS, TOOL_RES, centre, radius, dev)
+    res_ = TOOL_RES
+    surf = pcd.rasterize_surfel(cam)
+    check(tuple(surf.rgb.shape) == (1, TOOL_VIEWS, res_, res_, 3)
+          and surf.rgb.is_cuda and bool(torch.isfinite(surf.rgb).all()),
+          "surfel render")
+    hit = float(surf.hit_map.mean())
+    check(0.05 < hit < 0.9, f"surfel hit fraction {hit}")
+    stats["surfel_ms_per_view"] = _event_ms(
+        torch, lambda: pcd.rasterize_surfel(cam), 3) / TOOL_VIEWS
+    one = cam.index_select(1, [0])
+    for shading in ("directional", "half"):
+        img = pcd.rasterize_surfel(one, shading=shading)
+        check(bool(torch.isfinite(img.rgb).all()), f"surfel {shading}")
+        stats[f"surfel_{shading}_ms"] = _event_ms(
+            torch, lambda: pcd.rasterize_surfel(one, shading=shading), 3)
+    two = cam.index_select(1, [0, 1])
+    want = pcd_cpu.rasterize_surfel(two.to(cpu))
+    got_hit, got_rgb = surf.hit_map[:, :2].cpu(), surf.rgb[:, :2].cpu()
+    same = (got_hit == want.hit_map) & (got_rgb == want.rgb).all(-1)
+    # pixels a point falls on in one device's projection and not in the
+    # other's (floor(uv) rounded across a pixel edge): there the nearest z
+    # itself may differ; elsewhere only the winner inside the 1e-6 tie
+    # window may (the PLY's 8-bit colours repeat, so equal colours do not
+    # show the same winner, and depth is held pixel by pixel)
+    moved = torch.zeros(got_hit.shape, dtype=torch.bool)
+    n_moved = 0
+    for v in range(2):
+        pix = []
+        for x, K, H in ((pcd.xyz_w[0], cam.intrinsic[0, v], cam.H_c2w[0, v]),
+                        (pcd_cpu.xyz_w[0], two.intrinsic[0, v].cpu(),
+                         two.H_c2w[0, v].cpu())):
+            pr = G.pinhole_projection(x[None], K[None], H[None])
+            px = torch.floor(pr["uv"][0, :, 0]).long()
+            py = torch.floor(pr["uv"][0, :, 1]).long()
+            ok = (pr["in_front"][0] & (px >= 0) & (px < res_) & (py >= 0)
+                  & (py < res_))
+            pix.append(torch.where(ok, py * res_ + px, -1).cpu())
+        diff = pix[0] != pix[1]
+        n_moved += int(diff.sum())
+        touched = torch.cat([pix[0][diff], pix[1][diff]])
+        touched = touched[touched >= 0]
+        moved[0, v].view(-1)[touched] = True
+    kept = ~moved
+    both = kept & (want.hit_map > 0.5)
+    d_rel = float(((surf.depth[:, :2].cpu() - want.depth).abs()
+                   / want.depth)[both].max())
+    stats["surfel_same_share"] = float(same.float().mean())
+    stats["surfel_pixels_differ"] = int((~same).sum())
+    stats["surfel_points_moved"] = n_moved
+    stats["surfel_depth_rel_err"] = d_rel
+    log(f"[tools] rasterize_surfel of {n_pts} points, {TOOL_VIEWS} views "
+        f"{res_}²: {stats['surfel_ms_per_view']:.3f} ms per view (raw), "
+        f"directional {stats['surfel_directional_ms']:.3f} ms, half "
+        f"{stats['surfel_half_ms']:.3f} ms per view; hit {hit:.4f}; card vs "
+        f"CPU on 2 views: {stats['surfel_pixels_differ']} of {same.numel()} "
+        f"pixels differ in hit or colour; {n_moved} points fall on another "
+        f"pixel (floor(uv) rounded across an edge), touching "
+        f"{int(moved.sum())} pixels; elsewhere hits equal and depth max rel "
+        f"|d| {d_rel:.2e}")
+    check(stats["surfel_same_share"] >= 0.999,
+          f"surfel card vs CPU: {stats['surfel_same_share']} of pixels agree")
+    check(torch.equal(got_hit[kept], want.hit_map[kept]) and d_rel <= 1e-5,
+          f"surfel card vs CPU away from moved points: depth {d_rel}")
+
+    # 2. ray-point geometry on the rays of one view
+    cam_k = _ring_camera(torch, 1, KNN_RES, centre, radius, dev)
+    o, d = cam_k.generate_camera_rays()
+    o, d = o.reshape(1, -1, 3), d.reshape(1, -1, 3)
+    m_rays = o.shape[1]
+    kw = dict(k=8, chunk_rays=KNN_CHUNK)
+    knn = G.get_k_neighbor_points_in_chunks(pcd.xyz_w, o, d, **kw)  # warm
+    stats["knn_ms"] = _event_ms(
+        torch, lambda: G.get_k_neighbor_points_in_chunks(pcd.xyz_w, o, d, **kw),
+        1, warmup=0)
+    b_idx = knn["sorted_idxs"][0].cpu().numpy()
+    b_d = knn["sorted_dists"][0].cpu().numpy()
+    t0 = time.perf_counter()
+    grid = NB.GridRayQuery(xyz_np, cell_size=2.0)
+    g_idx, g_d, _ = grid.query(o[0].cpu().numpy(), d[0].cpu().numpy(), k=8,
+                               radius=2.0)
+    stats["grid_query_s"] = time.perf_counter() - t0
+    inside = b_d <= 2.0 - 1e-5
+    n_cmp, n_swap, g_err = _knn_agree(b_idx, b_d, g_idx, g_d, inside, 1e-4)
+    outside_ok = (g_idx[~inside] == -1) | (g_d[~inside] > 2.0 - 1e-4)
+    check(outside_ok.all(), "GridRayQuery reports a point beyond the radius")
+    surf_k = pcd.rasterize_surfel(cam_k).hit_map[0, 0].cpu().numpy() > 0.5
+    cover = float(inside.any(-1)[surf_k.reshape(-1)].mean())
+    check(cover >= KNN_COVER, f"{cover} of the rays whose surfel render hits "
+          f"have a point within the radius (at least {KNN_COVER})")
+    # card vs CPU at 1e-4 as against the grid: in voxel units the points lie
+    # ~1e3 from the origin, where a float32 step is 6e-5
+    c = KNN_CPU_RAYS
+    knn_cpu = G.get_k_neighbor_points_in_chunks(
+        pcd_cpu.xyz_w, o[:, :c].cpu(), d[:, :c].cpu(), **kw)
+    c_cmp, c_swap, c_err = _knn_agree(
+        b_idx[:c], b_d[:c], knn_cpu["sorted_idxs"][0].numpy(),
+        knn_cpu["sorted_dists"][0].numpy(), np.isfinite(b_d[:c]), 1e-4)
+    stats.update(knn_slots_vs_grid=n_cmp, knn_hit_rays_covered=cover,
+                 knn_tie_swaps_vs_grid=n_swap,
+                 knn_err_vs_grid=g_err, knn_slots_vs_cpu=c_cmp,
+                 knn_tie_swaps_vs_cpu=c_swap, knn_err_vs_cpu=c_err)
+    log(f"[tools] get_k_neighbor_points_in_chunks (k 8, {KNN_CHUNK} "
+        f"rays per chunk): {m_rays} rays x {n_pts} points in "
+        f"{stats['knn_ms']:.2f} ms on the card; GridRayQuery (radius 2) "
+        f"{stats['grid_query_s']:.3f} s on the host (build + query): "
+        f"{n_cmp} slots within the radius, {cover:.4f} of the "
+        f"{int(surf_k.sum())} rays whose surfel render hits have one; "
+        f"{n_swap} swapped ties, max |d| "
+        f"{g_err:.2e}; card vs CPU on {c} rays: {c_cmp} slots, {c_swap} "
+        f"swapped ties, max |d| {c_err:.2e}")
+    near = torch.from_numpy(b_idx[:, 0]).to(dev)
+    hit_ray = torch.from_numpy(np.isfinite(b_d[:, 0])).to(dev)
+    pts = pcd.xyz_w[0][near[hit_ray]][None]
+    K1, H1 = cam.intrinsic[:, 1], cam.H_c2w[:, 1]
+    proj = G.pinhole_projection(pts, K1, H1)
+    corr = G.find_corresponding_uv(pts, K1, H1, res_, res_)
+    samp = G.uv_sampling(surf.rgb[0, 1], corr["uv"][0])
+    zd = G.compute_3d_zdir_and_dps(surf.depth[0, 0], cam.intrinsic[0, 0],
+                                   cam.H_c2w[0, 0])
+    stats["geometry_ms"] = _event_ms(torch, lambda: (
+        G.pinhole_projection(pts, K1, H1),
+        G.find_corresponding_uv(pts, K1, H1, res_, res_),
+        G.uv_sampling(surf.rgb[0, 1], corr["uv"][0]),
+        G.compute_3d_zdir_and_dps(surf.depth[0, 0], cam.intrinsic[0, 0],
+                                  cam.H_c2w[0, 0])), 5)
+    pts_c, K1c, H1c = pts.cpu(), K1.cpu(), H1.cpu()
+    proj_c = G.pinhole_projection(pts_c, K1c, H1c)
+    corr_c = G.find_corresponding_uv(pts_c, K1c, H1c, res_, res_)
+    uv_c = corr_c["uv"]
+    rel = max(float((proj[k].cpu() - proj_c[k]).abs().max()
+                    / proj_c[k].abs().max()) for k in ("uv", "z"))
+    uvx = uv_c[0]
+    edge = ((uvx.abs() < 1e-3) | ((uvx - res_).abs() < 1e-3)).any(-1)
+    mism = (corr["valid"][0].cpu() != corr_c["valid"][0])
+    check(not (mism & ~edge).any(), "find_corresponding_uv masks differ")
+    s_err = float((samp.cpu() - G.uv_sampling(surf.rgb[0, 1].cpu(),
+                                              corr["uv"][0].cpu())).abs().max())
+    zd_c = G.compute_3d_zdir_and_dps(surf.depth[0, 0].cpu(),
+                                     cam.intrinsic[0, 0].cpu(),
+                                     cam.H_c2w[0, 0].cpu())
+    z_err = 0.0
+    for k in zd:
+        a, b = zd[k].cpu(), zd_c[k]
+        check(torch.equal(torch.isfinite(a), torch.isfinite(b)),
+              f"compute_3d_zdir_and_dps {k}: another non-finite pattern")
+        fin = torch.isfinite(b)
+        z_err = max(z_err, float(((a - b).abs()[fin] / b.abs().max()).max()))
+    stats.update(projection_rel_err=rel, uv_sampling_err=s_err,
+                 zdir_dps_rel_err=z_err, corresponding_valid=int(corr["valid"].sum()))
+    log(f"[tools] pinhole_projection / find_corresponding_uv / uv_sampling / "
+        f"compute_3d_zdir_and_dps of {pts.shape[1]} nearest points into view "
+        f"1: {stats['geometry_ms']:.3f} ms on the card; card vs CPU rel |d| "
+        f"{rel:.2e}, sampling |d| {s_err:.2e}, capture geometry rel |d| "
+        f"{z_err:.2e}; {int(mism.sum())} masks differ at a sensor edge")
+    check(rel <= 1e-5 and s_err <= 1e-6 and z_err <= 1e-6,
+          "geometry card vs CPU")
+
+    # 3. sparse: the learned cell's grid
+    coords, _ = synthetic_cloud(LEARNED_POINTS, 448, seed=0)
+    pts_l = torch.from_numpy(coords)
+    g_cpu = TSP.quantize_average(pts_l, torch.zeros((len(coords), 1)))
+    feats = torch.randn((g_cpu.num, 32), generator=torch.Generator().manual_seed(0))
+    g_cpu = g_cpu.replace(feats=feats)
+    g_dev = g_cpu.replace(codes=g_cpu.codes.to(dev), feats=feats.to(dev))
+    pts_d = pts_l.to(dev)
+    interp = TSP.interpolate_trilinear(g_dev, pts_d)
+    stats["interpolate_ms"] = _event_ms(
+        torch, lambda: TSP.interpolate_trilinear(g_dev, pts_d), 5)
+    i_err = float((interp.cpu() - TSP.interpolate_trilinear(g_cpu, pts_l))
+                  .abs().max())
+    keep = torch.rand(g_cpu.num, generator=torch.Generator().manual_seed(1)) > 0.5
+    pr_dev = TSP.prune(g_dev, keep.to(dev))
+    stats["prune_ms"] = _event_ms(torch, lambda: TSP.prune(g_dev, keep.to(dev)), 5)
+    pr_cpu = TSP.prune(g_cpu, keep)
+    check(torch.equal(pr_dev.codes.cpu(), pr_cpu.codes)
+          and torch.equal(pr_dev.feats.cpu(), pr_cpu.feats), "prune card vs CPU")
+    stats.update(grid_voxels=g_cpu.num, interpolate_err=i_err,
+                 pruned_voxels=pr_cpu.num)
+    log(f"[tools] interpolate_trilinear of {len(coords)} points on the "
+        f"{g_cpu.num}-voxel grid, 32 channels: {stats['interpolate_ms']:.3f} ms"
+        f" on the card, card vs CPU max |d| {i_err:.2e}; prune to "
+        f"{pr_cpu.num} voxels {stats['prune_ms']:.3f} ms, codes and features "
+        f"equal")
+    check(i_err <= 1e-6, f"interpolate_trilinear card vs CPU: {i_err}")
+    check(g_cpu.num == LEARNED_VOXELS, f"the learned grid has {g_cpu.num} voxels")
+
+    # 4. meshing on the host
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    vox = pcd_cpu.get_mesh("voxel", cell_width=4.0)
+    stats["mesh_voxel_s"] = time.perf_counter() - t0
+    sub = rng.choice(n_pts, POISSON_SUBSAMPLE, replace=False)
+    sub_t = torch.from_numpy(sub)
+    sub_pc = PointCloud(xyz_w=pcd_cpu.xyz_w[:, sub_t],
+                        normal_w=pcd_cpu.normal_w[:, sub_t])
+    t0 = time.perf_counter()
+    poi = sub_pc.get_mesh("poisson", depth=7)
+    stats["mesh_poisson_s"] = time.perf_counter() - t0
+    asub = rng.choice(n_pts, ALPHA_SUBSAMPLE, replace=False)
+    a_xyz = xyz_np[asub]
+    spacing = float(np.median(cKDTree(a_xyz).query(a_xyz, k=2)[0][:, 1]))
+    t0 = time.perf_counter()
+    alp = PointCloud.from_numpy(a_xyz).get_mesh("alpha", alpha=3 * spacing)
+    stats["mesh_alpha_s"] = time.perf_counter() - t0
+    for tag, msh in (("voxel", vox), ("poisson", poi), ("alpha", alp)):
+        check(len(msh.vertices) > 0 and len(msh.triangles) > 0, f"{tag} mesh empty")
+        stats[f"mesh_{tag}_triangles"] = len(msh.triangles)
+    for tag, msh in (("voxel", vox), ("poisson", poi)):
+        odd = int((_edge_counts(msh.triangles) % 2).sum())
+        check(odd == 0, f"the {tag} mesh has {odd} edges on an odd number of "
+              "triangles")
+    sub_xyz = xyz_np[sub]
+    cell = float((sub_xyz.max(0) - sub_xyz.min(0)).max()) * 1.2 / 2 ** 7
+    dist = cKDTree(xyz_np).query(poi.vertices)[0]
+    # the scored mesh's poles are open (latitudes 0.02 pi .. 0.98 pi of the
+    # sphere scaled to a half-height of 1 at 448 voxels per unit): the
+    # Poisson indicator closes each hole with a cap whose points lie up to
+    # about the hole's radius from its rim; two grid cells of smoothing on top
+    hole = 448.0 * math.tan(0.02 * math.pi) / 1.6
+    bound = hole + 2 * cell
+    stats.update(poisson_cell=cell, poisson_median_dist=float(np.median(dist)),
+                 poisson_max_dist=float(dist.max()), poisson_max_bound=bound)
+    rays = Ray(o.cpu().reshape(1, KNN_RES, KNN_RES, 3),
+               d.cpu().reshape(1, KNN_RES, KNN_RES, 3))
+    mesh_hit = poi.get_ray_intersection(rays)["hit_map"][0] > 0.5
+    agree = float((mesh_hit == surf_k).mean())
+    stats["poisson_hit_agreement"] = agree
+    log(f"[tools] get_mesh on the host: voxel (cell 4) of {n_pts} points "
+        f"{stats['mesh_voxel_s']:.2f} s, {len(vox.triangles)} triangles; "
+        f"poisson (depth 7) of {len(sub)} points {stats['mesh_poisson_s']:.2f} "
+        f"s, {len(poi.triangles)} triangles; alpha ({3 * spacing:.3f} = 3x the "
+        f"median spacing) of {len(asub)} points {stats['mesh_alpha_s']:.2f} s, "
+        f"{len(alp.triangles)} triangles; voxel and poisson edges all on an "
+        f"even number of triangles; poisson vertex to cloud: median "
+        f"{np.median(dist):.3f}, max {dist.max():.3f} voxels (grid cell "
+        f"{cell:.3f}; max bound {bound:.3f} = the open poles' hole radius "
+        f"{hole:.3f} + 2 cells); its {KNN_RES}² ray cast agrees with the "
+        f"cloud's surfel hits on {agree:.4f} of pixels")
+    check(np.median(dist) <= cell, "poisson vertices lie off the cloud")
+    check(dist.max() <= bound, f"a poisson vertex lies {dist.max()} from the cloud")
+    check(agree >= 0.95, f"poisson ray cast agrees on {agree} of pixels")
+
+    # 5. remesh_file on the scored OBJ
+    obj = os.path.join(src, "0001.obj")
+    t0 = time.perf_counter()
+    TM.remesh_file(obj, os.path.join(out_dir, "remeshed.obj"))
+    stats["remesh_file_s"] = time.perf_counter() - t0
+    back = TM.load_obj(os.path.join(out_dir, "remeshed.obj"), flip_texture_v=False)
+    uv = back["triangle_uvs"]
+    n_tri = len(back["triangles"])
+    cols = math.ceil(math.sqrt(n_tri))
+    rows = math.ceil(n_tri / cols)
+    cell_uv = np.floor(uv * [cols, rows]).astype(np.int64)
+    own = cell_uv[..., 1] * cols + cell_uv[..., 0]
+    check(n_tri == len(TM.load_obj(obj)["triangles"]) and uv.min() >= 0
+          and uv.max() <= 1 and (own == np.arange(n_tri)[:, None]).all(),
+          "remesh_file: a uv outside [0, 1] or its triangle's atlas cell")
+    log(f"[tools] remesh_file of the scored OBJ ({n_tri} triangles): "
+        f"{stats['remesh_file_s']:.2f} s; every uv in [0, 1] and in its "
+        f"triangle's cell of the {cols}x{rows} atlas")
+
+    # 6. Camera: slicing and frame meshes
+    whole = cam.H_c2w
+    for parts in (cam.split(res_ * res_ * 5), cam.chunk(5, dim=1)):
+        cat = Camera.cat(parts, dim=1)
+        check(torch.equal(cat.H_c2w, whole) and torch.equal(cat.intrinsic, cam.intrinsic),
+              "Camera.cat of the parts is not the camera")
+    sel = cam.index_select(1, [TOOL_VIEWS - 1, 0])
+    check(torch.equal(sel.H_c2w, whole[:, [TOOL_VIEWS - 1, 0]]), "index_select")
+    frames = os.path.join(out_dir, "frames.obj")
+    cam.save_camera_frames(frames, camera_frame_size=0.1 * radius,
+                           world_frame_size=0.2 * radius)
+    fr = TM.load_obj(frames)
+    check(fr["vertices"].shape == ((TOOL_VIEWS + 1) * 32, 3)
+          and fr["triangles"].shape == ((TOOL_VIEWS + 1) * 48, 3),
+          f"camera frames read back as {fr['vertices'].shape}")
+    log(f"[tools] Camera: split {[p.H_c2w.shape[1] for p in cam.split(res_ * res_ * 5)]}"
+        f", chunk {[p.H_c2w.shape[1] for p in cam.chunk(5, dim=1)]}, "
+        f"index_select and cat equal to the whole; save_camera_frames of "
+        f"{TOOL_VIEWS} views + world frame read back "
+        f"({len(fr['vertices'])} vertices)")
+
+    # 7. PointersectRecord from a ray cast of the scored mesh
+    mesh = TM.Mesh(obj, scale=1.0)
+    from gpcr_tpu_torch.structures.camera import derive_camera_intrinsics
+    from gpcr_tpu_torch.utils import rigid_motion as RM
+
+    H = RM.get_H_c2w_lookat(torch.tensor([[0.4, 0.3, 3.0]]), torch.zeros(1, 3),
+                            torch.tensor([[0.0, 1.0, 0.0]]))
+    pc_cam = Camera(H_c2w=H[None], intrinsic=derive_camera_intrinsics(
+        res_, res_, 45.0)[None, None], width_px=res_, height_px=res_)
+    ro, rd = pc_cam.generate_camera_rays()
+    ro, rd = ro.reshape(1, -1, 3), rd.reshape(1, -1, 3)
+    t0 = time.perf_counter()
+    cast = mesh.get_ray_intersection(Ray(ro, rd))
+    stats["record_cast_s"] = time.perf_counter() - t0
+    t = torch.from_numpy(cast["ray_ts"]).to(dev)
+    xyz_hit = ro.to(dev) + t[..., None] * rd.to(dev)
+    rec = PointersectRecord(
+        intersection_xyz_w=xyz_hit,
+        intersection_surface_normal_w=torch.from_numpy(cast["surface_normals_w"]).to(dev),
+        intersection_rgb=torch.from_numpy(cast["ray_rgbs"]).to(dev),
+        ray_t=t, ray_hit=torch.from_numpy(cast["hit_map"]).to(dev))
+    back_pc = rec.get_rgbd_image(pc_cam.to(dev)).get_pcd()
+    valid = back_pc.valid_mask[0, :, 0]
+    hit_m = rec.ray_hit[0] > 0.5
+    check(back_pc.device.type == dev.type and torch.equal(valid, hit_m)
+          and int(valid.sum()) > 0, "PointersectRecord: another hit mask")
+    r_err = float((back_pc.xyz_w[0][valid] - xyz_hit[0][valid]).abs().max())
+    stats.update(record_hits=int(valid.sum()), record_err=r_err)
+    log(f"[tools] PointersectRecord of one {res_}² ray cast of the scored mesh "
+        f"({stats['record_cast_s']:.2f} s on the host): get_rgbd_image + "
+        f"get_pcd on the card give back its {int(valid.sum())} hit points, "
+        f"max |d| {r_err:.2e}")
+    check(r_err <= 1e-3, f"PointersectRecord round trip: {r_err}")
+
+    # 8. sampling on the card. The means lie on the hemisphere around +z:
+    # get_min_R's K^2 / (1 + cos) term (JAX's formula) loses float32
+    # precision as a mean nears -z, which the whole sphere's error shows
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mu = torch.nn.functional.normalize(
+        torch.randn((VMF_SAMPLES, 3), generator=gen, device=dev), dim=-1)
+    sg = SMP.SphericalGaussian(kappa=100.0)
+    sphere_err = float((torch.linalg.norm(sg.sample(gen, mu), dim=-1) - 1)
+                       .abs().max())
+    mu = mu * torch.where(mu[:, 2:] < 0, -1.0, 1.0)
+    smp = sg.sample(gen, mu)
+    stats["vmf_ms"] = _event_ms(torch, lambda: sg.sample(gen, mu), 5)
+    norm_err = float((torch.linalg.norm(smp, dim=-1) - 1).abs().max())
+    w = (smp * mu).sum(-1).double()
+    mean_w = 1.0 / math.tanh(100.0) - 1.0 / 100.0
+    z_w = abs(float(w.mean()) - mean_w) / (float(w.std()) / math.sqrt(VMF_SAMPLES))
+    a = torch.arange(64_000, device=dev).reshape(1000, 64)
+    sh = SMP.shuffle_along_axis(gen, a, axis=1)
+    check(torch.equal(torch.sort(sh, dim=1).values, a) and not torch.equal(sh, a),
+          "shuffle_along_axis on the card is no per-row permutation")
+    stats.update(vmf_norm_err=norm_err, vmf_mean_w_z=z_w,
+                 vmf_norm_err_whole_sphere=sphere_err)
+    log(f"[tools] SphericalGaussian(kappa 100).sample of {VMF_SAMPLES} directions "
+        f"on the card: {stats['vmf_ms']:.3f} ms, max ||s| - 1| {norm_err:.2e} "
+        f"(means on the +z hemisphere; {sphere_err:.2e} with means on the "
+        f"whole sphere), mean w {float(w.mean()):.6f} against coth(k) - 1/k "
+        f"= {mean_w:.6f} ({z_w:.2f} standard errors); shuffle_along_axis a "
+        f"permutation per row")
+    check(norm_err <= 1e-5 and z_w <= 4.0, "vMF samples")
+
+    # 9. ColorCorrector: one Adam step on the card
+    cc = ColorCorrector(device=dev)
+    opt = torch.optim.Adam(cc.parameters(), lr=1e-2)
+    x = surf.rgb[0, 0]
+    loss = torch.mean((cc(x) - x * torch.tensor([0.9, 1.0, 1.1], device=dev)) ** 2)
+    loss.backward()
+    opt.step()
+    moved = float((cc.wrgb.detach() - 1).abs().max())
+    check(cc.wrgb.is_cuda and moved > 0, "ColorCorrector did not move")
+
+    # 10. the rasterizer's debug flag, traced
+    render = _golden_view(torch, dev, debug=True)
+    RS.LAUNCHES = 0
+    trace_dir = os.path.join(out_dir, "trace")
+    with DBG.trace(trace_dir):
+        img = render()
+    launches = RS.LAUNCHES
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        named = "stream_blend_kernel" in f.read()
+    ref = read_png(os.path.join(HERE, "tests", "golden", "rgb_0.png"))
+    psnr = _psnr_u8(img[:3].permute(1, 2, 0), ref)
+    raised = False
+    try:
+        _golden_view(torch, dev, debug=True, nan_at=5)()
+    except FloatingPointError:
+        raised = True
+    med, _, _ = timed(_golden_view(torch, dev, debug=False), warmup=1, iters=5)
+    stats.update(debug_launches=launches, debug_psnr=psnr, debug_view_ms=med,
+                 trace_names_kernel=named, colorcorrector_moved=moved)
+    log(f"[tools] golden view 0 with settings.debug under utils/debug.trace: "
+        f"serving kernel launches {launches}, the trace names "
+        f"stream_blend_kernel: {named}, {psnr:.2f} dB against the golden PNG;"
+        f" one NaN mean raises FloatingPointError: {raised}; timed: "
+        f"{med:.3f} ms (median of 5, host clock); ColorCorrector moved "
+        f"wrgb by {moved:.2e}")
+    check(raised, "a NaN mean did not raise with settings.debug")
+    check(psnr >= 50.0, f"the debug render is {psnr} dB off the golden PNG")
+    check(launches >= 1 and named, "the debug render did not go through "
+          "the serving kernel, or the trace does not name it")
+    log("[tools] " + json.dumps(stats))
+    return stats
+
+
+# --------------------------------------------------------------------------
 # training phases
 # --------------------------------------------------------------------------
 
@@ -1518,6 +2076,7 @@ def main() -> int:
         del splats
         scored = run(phase_scored, torch, B, RS, ckpt)
         run(phase_pipeline, torch, B, RS, ckpt, scored)
+        run(phase_tools, torch, RS)
         run(phase_grad_small, torch)
         train = run(phase_train, torch, RS, RV)
         run(phase_train_stages, torch, train["trainer"])

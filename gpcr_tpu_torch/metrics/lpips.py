@@ -129,6 +129,12 @@ def convert_lpips_state_dict(sd: T.Dict[str, T.Any]) -> T.Dict[str, np.ndarray]:
     return flat
 
 
+def convert_torch_lpips(lpips_module) -> T.Dict[str, np.ndarray]:
+    """The npz layout of a torch ``lpips.LPIPS(net='alex')`` module's
+    weights; save it with ``np.savez(path, **flat)``."""
+    return convert_lpips_state_dict(lpips_module.state_dict())
+
+
 def convert_lpips_pth(pth_path: str, out_path: str = DEFAULT_WEIGHTS) -> str:
     """Read an ``lpips`` .pth state dict (bare or under 'state_dict') with
     ``torch.load(weights_only=True)``, map it to the npz layout and save

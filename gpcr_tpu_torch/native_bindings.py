@@ -1,4 +1,4 @@
-"""ctypes bindings of the repo's native C++ sources, each with its
+"""ctypes bindings of the repo's native C++ sources, all but one with a
 Python version (the port's own copy of what it needs from
 ``gpcr_tpu/native_bindings``):
 
@@ -9,11 +9,15 @@ Python version (the port's own copy of what it needs from
   ASCII files and list properties);
 - ``native/sample_elim.cpp``: weighted sample elimination
   (``sample_elimination``; ``_sample_elimination_numpy`` is its version
-  in numpy and heapq).
+  in numpy and heapq);
+- ``native/pr_query.cpp``: the grid-accelerated k-nearest-points-to-ray
+  query (``GridRayQuery``). It has no Python version, as in JAX:
+  ``utils.geometry.get_k_neighbor_points`` is the brute-force search it
+  accelerates, and ``GridRayQuery`` raises without g++ or its source.
 
 Each source is compiled on demand with g++ into
 ``gpcr_tpu_torch/build/lib<name>.so``. Without g++ or without the source
-the callers use the Python version; ``make_caster`` prints once which
+the callers use the Python version where there is one; ``make_caster`` prints once which
 caster is in use. A build that was attempted and failed raises with the
 compiler's output: the Python versions are no silent stand-in at the
 sizes the native code exists for.
@@ -35,6 +39,7 @@ _NATIVE = os.path.join(os.path.dirname(_PKG), "native")
 _SRC = os.path.join(_NATIVE, "raytracer.cpp")
 _PLY_SRC = os.path.join(_NATIVE, "ply_parser.cpp")
 _SE_SRC = os.path.join(_NATIVE, "sample_elim.cpp")
+_PR_SRC = os.path.join(_NATIVE, "pr_query.cpp")
 _BUILD = os.path.join(_PKG, "build")
 _LOCK = threading.Lock()
 _CACHE: dict = {}
@@ -333,3 +338,66 @@ def _sample_elimination_numpy(pts: np.ndarray, n: int, r_max: float,
                 w[j] -= (1.0 - d / r_e) ** alpha
                 heapq.heappush(heap, (-w[j], j))
     return np.nonzero(alive)[0][:n].astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# k nearest points to rays (native/pr_query.cpp)
+# --------------------------------------------------------------------------
+
+
+def _declare_pr(lib):
+    lib.pr_build.restype = ctypes.c_void_p
+    lib.pr_build.argtypes = [_FP, ctypes.c_long, ctypes.c_float]
+    lib.pr_query.restype = None
+    lib.pr_query.argtypes = [
+        ctypes.c_void_p, _FP, _FP, ctypes.c_long, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, _IP, _FP, _FP]
+    lib.pr_free.restype = None
+    lib.pr_free.argtypes = [ctypes.c_void_p]
+
+
+class GridRayQuery:
+    """Grid-accelerated k-nearest-points-to-ray query on the host: a
+    uniform grid of ``cell_size`` cells that each ray walks with a 3D DDA,
+    testing the points of the 3x3x3 cells around each visited cell.
+    Raises without g++ or ``native/pr_query.cpp``."""
+
+    def __init__(self, points: np.ndarray, cell_size: float):
+        lib = _load("pr", _PR_SRC, "gpcr_pr", _declare_pr)
+        if lib is None:
+            raise RuntimeError(
+                "GridRayQuery needs g++ and native/pr_query.cpp; "
+                "utils.geometry.get_k_neighbor_points is the brute force")
+        self.lib = lib
+        self._pts = np.ascontiguousarray(points, np.float32)
+        self.handle = lib.pr_build(self._pts.ctypes.data_as(_FP),
+                                   len(self._pts), ctypes.c_float(cell_size))
+
+    def query(self, origins, dirs, k: int, t_min=0.0, t_max=1e10,
+              radius=None):
+        """Returns (idx (R, k) int32, -1 = miss; dist (R, k); t (R, k)),
+        sorted by perpendicular distance, restricted to dist <= radius (no
+        limit without one) and t in [t_min, t_max]."""
+        o = np.ascontiguousarray(origins, np.float32).reshape(-1, 3)
+        d = np.ascontiguousarray(dirs, np.float32).reshape(-1, 3)
+        r = len(o)
+        idx = np.empty((r, k), np.int32)
+        dist = np.empty((r, k), np.float32)
+        ts = np.empty((r, k), np.float32)
+        self.lib.pr_query(
+            ctypes.c_void_p(self.handle), o.ctypes.data_as(_FP),
+            d.ctypes.data_as(_FP), r, k, ctypes.c_float(t_min),
+            ctypes.c_float(t_max),
+            ctypes.c_float(radius if radius is not None else 1e30),
+            idx.ctypes.data_as(_IP), dist.ctypes.data_as(_FP),
+            ts.ctypes.data_as(_FP))
+        return idx, dist, ts
+
+    def close(self):
+        if self.handle:
+            self.lib.pr_free(ctypes.c_void_p(self.handle))
+            self.handle = None
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self.close()

@@ -84,7 +84,7 @@ class GaussianRasterizationSettings(T.NamedTuple):
     sh_degree: int
     campos: torch.Tensor  # (3,)
     prefiltered: bool = False
-    debug: bool = False
+    debug: bool = False  # raise on NaN / Inf (check_debug)
 
 
 class Preprocessed(T.NamedTuple):
@@ -251,6 +251,17 @@ def tile_bin(prep: Preprocessed, num_tiles: int, grid_x: int,
         sorted_tile, torch.arange(num_tiles + 1, device=dev),
         side="left").to(torch.int32)
     return sorted_gidx, starts, overflow
+
+
+def check_debug(settings: GaussianRasterizationSettings, prep: Preprocessed,
+                color) -> None:
+    """With ``settings.debug``, raise FloatingPointError when the splats'
+    2D means or conics, or the image, hold a NaN or Inf (a host read of
+    each: the call waits for the device). Every route runs it."""
+    if settings.debug:
+        from ..utils.debug import check_finite
+
+        check_finite((prep.mean2d, prep.conic, color), name="rasterize")
 
 
 def rasterize_gaussians(

@@ -352,4 +352,5 @@ def rasterize_gaussians_aligned(
     out, t_run = blend_aligned(prep, settings.bg, num_tiles, grid_x, config,
                                channels)
     color, _ = assemble_tiles(out, t_run, H, W, config)
+    R.check_debug(settings, prep, color)
     return color, prep.radius.to(torch.int32)

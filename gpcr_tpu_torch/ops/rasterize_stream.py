@@ -513,6 +513,7 @@ def rasterize_gaussians_stream(
         color, t_img = assemble_tiles(out, t_run, H // ds, W // ds, acfg)
     else:
         color, t_img = assemble_tiles(out, t_run, H, W, config)
+    R.check_debug(settings, prep, color)
     radii = prep.radius.to(torch.int32)
     if return_extra:
         return color, radii, {"final_T": t_img, "dup_overflow": overflow}

@@ -349,6 +349,7 @@ def rasterize_gaussians_stream_diff(
         prep.depth.detach(), prep.rect, prep.valid,
         num_tiles, grid_x, cfg, channels)
     color, t_img = S.assemble_tiles(out, t_run, H, W, cfg)
+    R.check_debug(settings, prep, color)
     radii = prep.radius.to(torch.int32)
     if return_extra:
         return color, radii, {"final_T": t_img, "dup_overflow": overflow}

@@ -57,6 +57,10 @@ class SparseGrid:
     def coords(self) -> torch.Tensor:
         return unpack_coords(self.codes)
 
+    def world_coords(self) -> torch.Tensor:
+        """Coordinates in the original (stride-1) grid units."""
+        return self.coords() * self.stride
+
     def replace(self, **kw) -> "SparseGrid":
         return dataclasses.replace(self, **kw)
 
@@ -225,3 +229,43 @@ def conv_up_generative(
         m = octant == o
         out[m] = pf[m] @ weight[o]
     return out if bias is None else out + bias
+
+
+# --------------------------------------------------------------------------
+# interpolation / pruning
+# --------------------------------------------------------------------------
+
+
+def interpolate_trilinear(grid: SparseGrid,
+                          points: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation of the grid's features at continuous points
+    (MinkowskiInterpolation), points in the grid's normalized
+    coordinates; a corner that is not a voxel (or lies off the grid)
+    reads zero. Returns (P, C) float32."""
+    base = torch.floor(points)
+    frac = points - base
+    base = base.long()
+    feats_pad = _pad_zero_row(grid.feats)
+    out = torch.zeros((points.shape[0], grid.feats.shape[1]),
+                      dtype=torch.float32, device=points.device)
+    for dx in range(2):
+        for dy in range(2):
+            for dz in range(2):
+                c = base + torch.tensor([dx, dy, dz], device=points.device)
+                w = ((frac[:, 0] if dx else 1 - frac[:, 0])
+                     * (frac[:, 1] if dy else 1 - frac[:, 1])
+                     * (frac[:, 2] if dz else 1 - frac[:, 2]))
+                in_range = torch.all((c >= 0) & (c < GRID_MAX), dim=-1)
+                idx, found = lookup(grid.codes,
+                                    pack_coords(c.clamp(0, GRID_MAX - 1)))
+                found = found & in_range
+                idx = torch.where(found, idx, torch.full_like(idx, grid.num))
+                out = out + (w[:, None] * feats_pad[idx]) * found[:, None]
+    return out
+
+
+def prune(grid: SparseGrid, keep: torch.Tensor) -> SparseGrid:
+    """Drop the voxels where ``keep`` is False (MinkowskiPruning). The
+    survivors stay in code order."""
+    keep = keep.bool()
+    return grid.replace(codes=grid.codes[keep], feats=grid.feats[keep])

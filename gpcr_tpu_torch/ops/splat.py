@@ -56,6 +56,14 @@ def compute_cov3d(scales: torch.Tensor, scale_modifier: float,
     )
 
 
+def unpack_sym6(c6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) packed (xx, xy, xz, yy, yz, zz) -> (..., 3, 3) symmetric."""
+    xx, xy, xz, yy, yz, zz = (c6[..., i] for i in range(6))
+    return torch.stack([torch.stack([xx, xy, xz], -1),
+                        torch.stack([xy, yy, yz], -1),
+                        torch.stack([xz, yz, zz], -1)], dim=-2)
+
+
 def transform_point_4x3(p: torch.Tensor, matrix_t: torch.Tensor) -> torch.Tensor:
     """[p, 1] @ M[:, :3]."""
     x, y, z = p[..., 0], p[..., 1], p[..., 2]

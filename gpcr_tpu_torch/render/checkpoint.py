@@ -42,8 +42,11 @@ def _flatten(params: dict, prefix: str = "") -> T.Dict[str, np.ndarray]:
     return out
 
 
-def convert_torch_state_dict(state: dict) -> dict:
-    """Reference flat state dict -> nested numpy params."""
+def convert_torch_state_dict(state: dict,
+                             flip_kernel_axes: bool = False) -> dict:
+    """Reference flat state dict -> nested numpy params. With
+    ``flip_kernel_axes`` every kernel of more than one offset has its
+    offset axis reversed."""
     flat = {}
     for k, v in state.items():
         if isinstance(v, torch.Tensor):
@@ -53,6 +56,8 @@ def convert_torch_state_dict(state: dict) -> dict:
             continue  # constant buffer, baked into the head
         if k.endswith(".kernel") and v.ndim == 2:
             v = v[None]  # 1³ kernel -> (1, Cin, Cout)
+        if flip_kernel_axes and k.endswith(".kernel") and v.shape[0] > 1:
+            v = v[::-1].copy()
         flat[k] = v
     return _nest(flat)
 

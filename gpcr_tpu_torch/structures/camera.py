@@ -1,6 +1,8 @@
-"""Batched pinhole cameras (port of ``gpcr_tpu/structures/camera.py``
-without its debug frame meshes, ``chunk`` / ``split`` and
-``index_select``).
+"""Batched pinhole cameras (port of ``gpcr_tpu/structures/camera.py``):
+rays, slicing (``index_select``, ``chunk``, pixel-budget ``split``, ``cat``),
+geodesic resampling, persistence, and the coordinate-frame meshes of the
+debug view (``get_camera_frames`` / ``save_camera_frames``, host numpy in
+float64, as in JAX, so both write the same OBJ).
 
 ``H_c2w`` is (b, q, 4, 4) camera-to-world with image y pointing down;
 ``intrinsic`` is (b, q, 3, 3) with f = 0.5 * width / tan(fov/2). Rays
@@ -60,6 +62,14 @@ class Camera:
     def device(self) -> torch.device:
         return self.H_c2w.device
 
+    @property
+    def batch_shape(self):
+        return self.H_c2w.shape[:-2]
+
+    def get_camera_origin_w(self) -> torch.Tensor:
+        """(b, q, 3) camera origins in world."""
+        return self.H_c2w[..., :3, 3]
+
     def get_H_w2c(self) -> torch.Tensor:
         """Closed-form rigid inverse of ``H_c2w``."""
         from ..utils.rigid_motion import inv_homogeneous
@@ -95,6 +105,37 @@ class Camera:
             ib = slice(ib, ib + 1)
         return dataclasses.replace(
             self, H_c2w=self.H_c2w[ib], intrinsic=self.intrinsic[ib])
+
+    def index_select(self, dim: int, index) -> "Camera":
+        """The cameras at ``index`` along ``dim`` (``jnp.take``: an int
+        drops the axis, a 1-D index keeps it)."""
+        idx = torch.as_tensor(index, device=self.device)
+
+        def take(a):
+            if idx.dim() == 0:
+                return a.select(dim, int(idx))
+            return a.index_select(dim, idx.long())
+
+        return dataclasses.replace(self, H_c2w=take(self.H_c2w),
+                                   intrinsic=take(self.intrinsic))
+
+    def chunk(self, chunks: int, dim: int = 0) -> T.List["Camera"]:
+        """``chunks`` parts along ``dim`` (``np.array_split`` sizes: the
+        first ``len % chunks`` parts one longer)."""
+        hs = torch.tensor_split(self.H_c2w, chunks, dim=dim)
+        ks = torch.tensor_split(self.intrinsic, chunks, dim=dim)
+        return [dataclasses.replace(self, H_c2w=h, intrinsic=k)
+                for h, k in zip(hs, ks)]
+
+    def split(self, max_pixels: int) -> T.List["Camera"]:
+        """Split the view axis so each part renders at most ``max_pixels``
+        (q_part * h * w) pixels, at least one view per part."""
+        q = self.H_c2w.shape[1]
+        per_view = self.width_px * self.height_px
+        step = max(1, max_pixels // max(per_view, 1))
+        return [dataclasses.replace(self, H_c2w=self.H_c2w[:, s:s + step],
+                                    intrinsic=self.intrinsic[:, s:s + step])
+                for s in range(0, q, step)]
 
     def to(self, device) -> "Camera":
         return dataclasses.replace(
@@ -147,6 +188,46 @@ class Camera:
                       width_px=int(d["width_px"]),
                       height_px=int(d["height_px"]))
 
+    def get_camera_frames(
+        self, camera_frame_size: float = 0.1
+    ) -> T.List[T.List[dict]]:
+        """Per-camera coordinate-frame meshes for debug views: +X red / +Y
+        green / +Z blue shafts and a gray origin block, posed in world by
+        H_c2w (in float64). Returns a [b][q] nested list of mesh dicts
+        with ``vertices (V, 3) f32``, ``triangles (F, 3) i32`` and
+        ``colors (V, 3) f32``."""
+        H = self.H_c2w.detach().cpu().numpy().astype(np.float64)
+        b, q = H.shape[:2]
+        return [[coordinate_frame_mesh(H[ib, iq], frame_size=camera_frame_size)
+                 for iq in range(q)] for ib in range(b)]
+
+    def save_camera_frames(
+        self,
+        filename: str,
+        camera_frame_size: float = 0.1,
+        world_frame_size: T.Optional[float] = None,
+    ) -> None:
+        """Write every camera frame (and, with ``world_frame_size``, a world
+        frame at the origin) into one OBJ with per-vertex colours (``v x y
+        z r g b``; loaders that read three floats per ``v`` line, such as
+        ``structures.mesh.load_obj``, ignore the colours)."""
+        meshes = [m for row in self.get_camera_frames(camera_frame_size)
+                  for m in row]
+        if world_frame_size is not None:
+            meshes.append(
+                coordinate_frame_mesh(np.eye(4), frame_size=world_frame_size))
+        with open(filename, "w") as f:
+            f.write("# gpcr_tpu camera frames\n")
+            base = 0
+            for m in meshes:
+                for v, c in zip(m["vertices"], m["colors"]):
+                    f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f} "
+                            f"{c[0]:.3f} {c[1]:.3f} {c[2]:.3f}\n")
+                for t in m["triangles"]:
+                    f.write(f"f {t[0] + 1 + base} {t[1] + 1 + base} "
+                            f"{t[2] + 1 + base}\n")
+                base += len(m["vertices"])
+
     def save(self, filename: str) -> None:
         """Save as .json, else as .npz (numpy appends the suffix when the
         name lacks it)."""
@@ -172,3 +253,55 @@ class Camera:
                  for k, v in d.items()}, device)
         with np.load(filename) as z:
             return Camera.from_state_dict({k: z[k] for k in z.files}, device)
+
+
+def _box_mesh(lo, hi, color):
+    """Axis-aligned box as (8 verts, 12 tris, per-vertex color)."""
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    corners = np.array(
+        [[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+         for z in (lo[2], hi[2])]
+    )  # index bits: x<<2 | y<<1 | z
+    tris = np.array(
+        [
+            [0, 1, 3], [0, 3, 2],  # -x
+            [4, 6, 7], [4, 7, 5],  # +x
+            [0, 4, 5], [0, 5, 1],  # -y
+            [2, 3, 7], [2, 7, 6],  # +y
+            [0, 2, 6], [0, 6, 4],  # -z
+            [1, 5, 7], [1, 7, 3],  # +z
+        ],
+        np.int32,
+    )
+    colors = np.tile(np.asarray(color, np.float64), (8, 1))
+    return corners, tris, colors
+
+
+def coordinate_frame_mesh(H: np.ndarray, frame_size: float = 1.0) -> dict:
+    """Triangle-mesh coordinate frame (o3d's ``create_coordinate_frame``
+    analogue): +X red, +Y green, +Z blue shafts of length ``frame_size``
+    plus a gray origin block, moved into world by the (4, 4) pose ``H``."""
+    s = float(frame_size)
+    w = s / 20.0
+    parts = [
+        _box_mesh([-1.5 * w] * 3, [1.5 * w] * 3, [0.5, 0.5, 0.5]),
+        _box_mesh([0, -w, -w], [s, w, w], [1.0, 0.0, 0.0]),
+        _box_mesh([-w, 0, -w], [w, s, w], [0.0, 1.0, 0.0]),
+        _box_mesh([-w, -w, 0], [w, w, s], [0.0, 0.0, 1.0]),
+    ]
+    verts, tris, colors = [], [], []
+    base = 0
+    for v, t, c in parts:
+        verts.append(v)
+        tris.append(t + base)
+        colors.append(c)
+        base += len(v)
+    v = np.concatenate(verts)
+    H = np.asarray(H, np.float64)
+    v = v @ H[:3, :3].T + H[:3, 3]
+    return {
+        "vertices": v.astype(np.float32),
+        "triangles": np.concatenate(tris),
+        "colors": np.concatenate(colors).astype(np.float32),
+    }

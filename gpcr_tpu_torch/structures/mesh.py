@@ -12,9 +12,8 @@ z-buffer; the RGBDImage's tensors lie on the camera's device) and
 scale) + offset, unique dedup), ``poisson_disk`` (weighted sample
 elimination of 5x uniform candidates, ``native/sample_elim.cpp``) and
 ``uniform_camera`` (26 look-at cameras on a sphere, ray cast on the host,
-unprojected on ``device``).
-
-Not ported: ``remesh`` (raises NotImplementedError).
+unprojected on ``device``), and ``remesh`` / ``remesh_file``: a per-face
+uv atlas.
 """
 
 from __future__ import annotations
@@ -590,5 +589,79 @@ def _rgbd(camera: Camera, rgb, depth, normal_w, hit_map):
 
 def remesh(mesh: Mesh, atlas_cols: T.Optional[int] = None,
            margin: float = 0.1) -> Mesh:
-    raise NotImplementedError(
-        "remesh is not ported yet (ROADMAP queue 3: remaining structures)")
+    """Give every triangle a chart of its own, packed on a square grid of
+    atlas cells: each triangle keeps its 2D shape up to uniform scale,
+    inset by ``margin`` of its cell (a per-face atlas in place of
+    xatlas's unwrapping; valid for texture baking).
+
+    Vectorised over triangles with the JAX package's per-triangle float32
+    operations: elementwise ufuncs give the same values on arrays as on
+    one triangle, and the length-3 dot products (the norms included) stay
+    one ``@`` per row, the BLAS call the JAX loop makes. So the uvs are
+    the same bit for bit."""
+    import math
+
+    f = len(mesh.triangles)
+    cols = atlas_cols or int(math.ceil(math.sqrt(max(f, 1))))
+    rows = int(math.ceil(f / max(cols, 1)))
+    cell_w, cell_h = 1.0 / cols, 1.0 / rows
+
+    v = mesh.vertices
+    t = mesh.triangles
+    a, b, c = v[t[:, 0]], v[t[:, 1]], v[t[:, 2]]
+    e1 = b - a
+    e2 = c - a
+    n = np.cross(e1, e2)
+    y = np.cross(n, e1)
+    nrm_e1 = np.sqrt(np.array([r @ r for r in e1], e1.dtype))
+    x_axis = e1 / (nrm_e1 + 1e-12)[:, None]
+    nrm_y = np.sqrt(np.array([r @ r for r in y], y.dtype))
+    y_axis = y / (nrm_y + 1e-12)[:, None]
+    p2 = np.zeros((f, 3, 2))
+    for i in range(f):
+        p2[i, 1] = (e1[i] @ x_axis[i], e1[i] @ y_axis[i])
+        p2[i, 2] = (e2[i] @ x_axis[i], e2[i] @ y_axis[i])
+    lo = p2.min(axis=1)
+    span = np.maximum((p2.max(axis=1) - lo).max(axis=1), 1e-12)
+    p2 = (p2 - lo[:, None]) / span[:, None, None]  # fit into the unit square
+    idx = np.arange(f)
+    corner = np.stack([idx % cols, idx // cols], axis=-1)[:, None]
+    tri_uvs = ((corner + margin + p2 * (1 - 2 * margin))
+               * np.array([cell_w, cell_h])).astype(np.float32)
+
+    out = Mesh.__new__(Mesh)
+    out.vertices = mesh.vertices.copy()
+    out.triangles = mesh.triangles.copy()
+    out.triangle_uvs = tri_uvs
+    out.vertex_normals = mesh.vertex_normals
+    out.textures = mesh.textures
+    out.material_ids = mesh.material_ids
+    out._caster = None
+    return out
+
+
+def remesh_file(obj_in: str, obj_out: str) -> str:
+    """Load an OBJ as it is (no centring, scaling or uv cleaning), give it
+    the per-face atlas of ``remesh`` and write it as ``v`` / ``vt`` /
+    ``f v/vt`` lines, uvs rounded to 6 decimals, numbered by first use and
+    shared where equal. Returns ``obj_out``."""
+    mesh = Mesh(obj_in, scale=None, center_w=None, clean=False)
+    out = remesh(mesh)
+    uvs = np.round(out.triangle_uvs, 6)  # float32, as each uv in JAX
+    keys = uvs.tolist()
+    with open(obj_out, "w") as fh:
+        for p in out.vertices:
+            fh.write(f"v {p[0]} {p[1]} {p[2]}\n")
+        uv_idx = {}
+        lines = []
+        for i, tri in enumerate(out.triangles.tolist()):
+            idxs = []
+            for j in range(3):
+                key = tuple(keys[i][j])
+                if key not in uv_idx:
+                    uv_idx[key] = len(uv_idx) + 1
+                    fh.write(f"vt {uvs[i, j, 0]} {uvs[i, j, 1]}\n")
+                idxs.append((tri[j] + 1, uv_idx[key]))
+            lines.append("f " + " ".join(f"{a}/{b}" for a, b in idxs) + "\n")
+        fh.writelines(lines)
+    return obj_out

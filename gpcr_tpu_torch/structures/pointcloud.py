@@ -1,13 +1,13 @@
-"""Batched point clouds (port of the data half of
-``gpcr_tpu/structures/pointcloud.py``): (b, n, ·) attribute tensors with a
-validity mask, ragged ``cat`` with padding, PLY and state-dict
-persistence, Gaussian-weighted voxel downsampling and radius outlier
-removal, all on the cloud's device.
+"""Batched point clouds (port of ``gpcr_tpu/structures/pointcloud.py``):
+(b, n, ·) attribute tensors with a validity mask, ragged ``cat`` with
+padding, PLY and state-dict persistence, Gaussian-weighted voxel
+downsampling and radius outlier removal, all on the cloud's device.
 
 As in the JAX package, operations that shrink the cloud (voxel
 downsampling, outlier removal) keep the padded length and update
-``valid_mask`` instead of reallocating. Not ported: the surfel rasterizer
-and the meshing methods.
+``valid_mask`` instead of reallocating. The surfel z-buffer runs on the
+cloud's device; normal estimation and meshing (voxel, alpha shape,
+Poisson) run on the host in numpy.
 """
 
 from __future__ import annotations
@@ -316,3 +316,155 @@ class PointCloud:
             outs.append(nrm)
         return self.replace(normal_w=torch.as_tensor(
             np.stack(outs), device=self.device))
+
+    # ---- surfel rasterization ---------------------------------------------------
+
+    def rasterize_surfel(self, camera, point_size: int = 1, shading: str = "raw",
+                         light_dir=(0.0, 0.0, 1.0), bg_color=1.0,
+                         bidx: int = 0):
+        """Z-buffer point splatting on the cloud's device: each valid point
+        in front of a camera falls on the pixel floor(uv); a pixel shows
+        the lowest-index point among those within 1e-6 of its nearest z,
+        else ``bg_color``. shading: 'raw' (albedo), 'directional'
+        (lambert |n.l|), 'half' ((n.l + 1) / 2), the latter two only with
+        normals. ``point_size`` is accepted and unused, as in JAX. Returns
+        an RGBDImage (b = 1, q, h, w) of ``camera[bidx]``."""
+        from ..ops.segment import segment_min
+        from ..utils.geometry import pinhole_projection
+        from .rgbd_image import RGBDImage
+
+        h, w = camera.height_px, camera.width_px
+        q = camera.H_c2w.shape[1]
+        xyz = self.xyz_w[bidx]
+        dev, n = xyz.device, xyz.shape[0]
+        rgb = self.rgb[bidx] if self.rgb is not None else torch.ones_like(xyz)
+        nrm = self.normal_w[bidx] if self.normal_w is not None else None
+        mask = self.get_valid_mask()[bidx, :, 0]
+
+        if shading != "raw" and nrm is not None:
+            ld = torch.tensor(light_dir, dtype=torch.float32, device=dev)
+            ld = ld / torch.linalg.norm(ld)
+            cos = torch.sum(nrm * ld, dim=-1, keepdim=True)
+            if shading == "directional":
+                shade = torch.abs(cos)
+            elif shading == "half":
+                shade = (cos + 1.0) / 2.0
+            else:
+                raise NotImplementedError(shading)
+            rgb = rgb * shade
+
+        bg = torch.as_tensor(bg_color, dtype=rgb.dtype, device=dev)
+        big = torch.iinfo(torch.int64).max
+        point_idx = torch.arange(n, device=dev)
+        imgs, depths, hits = [], [], []
+        for iq in range(q):
+            proj = pinhole_projection(
+                xyz[None], camera.intrinsic[bidx, iq][None].to(dev),
+                camera.H_c2w[bidx, iq][None].to(dev))
+            uv, z = proj["uv"][0], proj["z"][0]
+            px = torch.floor(uv[:, 0]).long()
+            py = torch.floor(uv[:, 1]).long()
+            ok = (mask & proj["in_front"][0] & (px >= 0) & (px < w)
+                  & (py >= 0) & (py < h))
+            pid = torch.where(ok, py * w + px, h * w)
+            zq = torch.where(ok, z, float("inf"))
+            zmin = segment_min(zq, pid, h * w + 1)[:-1]
+            win = ok & (z <= zmin[torch.clamp(pid, 0, h * w - 1)] + 1e-6)
+            idx_win = segment_min(torch.where(win, point_idx, big), pid,
+                                  h * w + 1)[:-1]
+            has = idx_win < big
+            img = torch.where(has[:, None], rgb[torch.clamp(idx_win, 0, n - 1)],
+                              bg)
+            imgs.append(img.reshape(h, w, 3))
+            depths.append(torch.where(has, zmin, float("inf")).reshape(h, w))
+            hits.append(has.to(torch.float32).reshape(h, w))
+        return RGBDImage(rgb=torch.stack(imgs)[None],
+                         depth=torch.stack(depths)[None],
+                         camera=camera[bidx],
+                         hit_map=torch.stack(hits)[None])
+
+    # ---- meshing ------------------------------------------------------------------
+
+    def get_mesh(self, method: str = "voxel", cell_width: float = 0.05,
+                 bidx: int = 0, alpha: float = 0.1, depth: int = 6):
+        """Point cloud -> mesh, on the host in numpy. Methods:
+
+        - 'alpha' / 'alpha_shape': Delaunay alpha shape
+          (``reconstruct.alpha_shape_mesh``);
+        - 'poisson': grid Poisson reconstruction from oriented normals
+          (``reconstruct.poisson_mesh``; estimates normals if absent);
+        - 'voxel': the boundary faces of the occupied cells of width
+          ``cell_width``, two triangles each;
+        - 'ball_pivot' is not implemented: its pivoting front has no
+          vectorised form; 'alpha' with alpha near the ball radius stands
+          in for it.
+        """
+        from . import reconstruct
+        from .mesh import Mesh
+
+        xyz = self.xyz_w[bidx].detach().cpu().numpy()
+        mask = self.get_valid_mask()[bidx, :, 0].cpu().numpy()
+        if method in ("alpha", "alpha_shape"):
+            v, f = reconstruct.alpha_shape_mesh(xyz[mask], alpha)
+            return Mesh({"vertices": v, "triangles": f}, scale=None,
+                        center_w=None)
+        if method == "poisson":
+            if self.normal_w is not None:
+                nrm = self.normal_w[bidx].detach().cpu().numpy()[mask]
+            else:
+                nrm = reconstruct.estimate_normals(xyz[mask])
+            v, f = reconstruct.poisson_mesh(xyz[mask], nrm, depth=depth)
+            return Mesh({"vertices": v, "triangles": f}, scale=None,
+                        center_w=None)
+        if method != "voxel":
+            raise NotImplementedError(
+                f"'{method}': supported methods are alpha/poisson/voxel "
+                f"(ball_pivot dropped — see get_mesh docstring)")
+        v, f = _voxel_boundary_mesh(xyz[mask], cell_width)
+        return Mesh({"vertices": v, "triangles": f, "textures": [],
+                     "material_ids": np.zeros(len(f), np.int32)},
+                    scale=None, center_w=None)
+
+
+# the six faces of a unit cell (the JAX table's order): the outward step to
+# the neighbour cell that hides the face, and the face's four corners
+_FACE_NORMALS = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                          [0, 0, 1], [0, 0, -1]], np.int64)
+_FACE_CORNERS = np.array([
+    [(1, 0, 0), (1, 1, 0), (1, 1, 1), (1, 0, 1)],
+    [(0, 0, 1), (0, 1, 1), (0, 1, 0), (0, 0, 0)],
+    [(0, 1, 0), (0, 1, 1), (1, 1, 1), (1, 1, 0)],
+    [(0, 0, 0), (1, 0, 0), (1, 0, 1), (0, 0, 1)],
+    [(0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)],
+    [(0, 0, 0), (0, 1, 0), (1, 1, 0), (1, 0, 0)],
+], np.int64)
+
+
+def _voxel_boundary_mesh(xyz: np.ndarray, cell_width: float):
+    """Boundary faces of the occupied cells, vectorised: cells in
+    lexicographic order, faces in table order, vertices numbered by first
+    occurrence in (cell, face, corner) order. Returns (vertices (V, 3)
+    float32, triangles (F, 3) int32)."""
+    cells = np.unique(np.floor(xyz / cell_width).astype(np.int64), axis=0)
+    if len(cells) == 0:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+    lo = cells.min(0) - 1
+    span = cells.max(0) - lo + 2
+
+    def key(c):  # lexicographic, so ``cells`` are sorted by it
+        c = c - lo
+        return (c[..., 0] * span[1] + c[..., 1]) * span[2] + c[..., 2]
+
+    occ = key(cells)
+    nb = key(cells[:, None, :] + _FACE_NORMALS[None])  # (C, 6)
+    pos = np.clip(np.searchsorted(occ, nb), 0, len(occ) - 1)
+    ic, jf = np.nonzero(occ[pos] != nb)  # exposed faces, (cell, face) order
+    corners = (cells[ic][:, None, :] + _FACE_CORNERS[jf]).reshape(-1, 3)
+    _, first, inv = np.unique(key(corners), return_index=True,
+                              return_inverse=True)
+    rank = np.empty(len(first), np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    ids = rank[inv.reshape(-1)].reshape(-1, 4)
+    tris = np.stack([ids[:, [0, 1, 2]], ids[:, [0, 2, 3]]], axis=1)
+    verts = corners[np.sort(first)].astype(np.float64) * cell_width
+    return verts.astype(np.float32), tris.reshape(-1, 3).astype(np.int32)

@@ -1,10 +1,11 @@
-"""Ray bundles (port of what training needs of
-``gpcr_tpu/structures/ray.py``)."""
+"""Ray bundles (port of ``gpcr_tpu/structures/ray.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import typing as T
+
 import torch
 
 
@@ -16,6 +17,22 @@ class Ray:
     @property
     def shape(self):
         return self.origins_w.shape[:-1]
+
+    def reshape(self, *shape) -> "Ray":
+        return Ray(origins_w=self.origins_w.reshape(*shape, 3),
+                   directions_w=self.directions_w.reshape(*shape, 3))
+
+    def chunk(self, chunks: int, dim: int = 1) -> T.List["Ray"]:
+        """``chunks`` parts along ``dim`` (``np.array_split`` sizes)."""
+        os_ = torch.tensor_split(self.origins_w, chunks, dim=dim)
+        ds = torch.tensor_split(self.directions_w, chunks, dim=dim)
+        return [Ray(o, d) for o, d in zip(os_, ds)]
+
+    @staticmethod
+    def cat(rays: T.Sequence["Ray"], dim: int = 1) -> "Ray":
+        return Ray(
+            origins_w=torch.cat([r.origins_w for r in rays], dim=dim),
+            directions_w=torch.cat([r.directions_w for r in rays], dim=dim))
 
     def random_perturb_direction(self, generator: torch.Generator,
                                  max_angle_deg: float) -> "Ray":
@@ -38,3 +55,7 @@ class Ray:
                                + torch.sin(phi)[..., None] * v)
         new_d = new_d / torch.linalg.norm(new_d, dim=-1, keepdim=True)
         return dataclasses.replace(self, directions_w=new_d)
+
+    def state_dict(self) -> dict:
+        return {"origins_w": self.origins_w.detach().cpu().numpy(),
+                "directions_w": self.directions_w.detach().cpu().numpy()}

@@ -3,7 +3,8 @@ stream blend (with its warp-level culling), the contributor-count
 forward and the aligned all-tiles blend (both walking a chunk ring), the
 replay backward (tiles split into segments); and the data path's torch
 ops on the card against the CPU (voxel downsampling, outlier removal,
-RGBD unprojection).
+RGBD unprojection, segment max / min, the surfel z-buffer, the k nearest
+points to rays, sparse trilinear interpolation and pruning).
 
 Each test skips without a CUDA device; the decision is taken inside the
 ``cuda`` fixture, never at import. The file imports no JAX, so it also
@@ -585,3 +586,98 @@ def test_get_pcd_on_the_card_matches_cpu(cuda):
         g = torch.where(mask, getattr(got, k).cpu(), 0.0)
         w = torch.where(mask, getattr(want, k), 0.0)
         assert float((g - w).abs().max()) <= 1e-5, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_segment_max_min_on_the_card_match_cpu(cuda, dtype):
+    """scatter_reduce_ on the card: the CPU's values, empty segments at the
+    reduction's identity."""
+    from gpcr_tpu_torch.ops import segment as TSEG
+
+    rng = np.random.RandomState(0)
+    data = torch.from_numpy((rng.randn(5000, 3) * 100).astype(np.float32)).to(dtype)
+    ids = torch.from_numpy(rng.randint(0, 700, 5000))
+    for fn in (TSEG.segment_max, TSEG.segment_min):
+        want = fn(data, ids, 800)
+        got = fn(data.to(cuda), ids.to(cuda), 800)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shading", ["raw", "half"])
+def test_rasterize_surfel_on_the_card_matches_cpu(cuda, shading):
+    """The surfel z-buffer of a seeded sphere cloud on the card: hit maps
+    and colours equal on at least 99.9% of pixels (the rest only where a
+    point's uv or z rounds across a pixel edge or the 1e-6 tie window),
+    depth within 1e-5 relative where both agree."""
+    from gpcr_tpu_torch.structures.camera import Camera
+    from gpcr_tpu_torch.structures.pointcloud import PointCloud
+
+    rng = np.random.RandomState(1)
+    v = rng.randn(1, 20000, 3)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    pcd = PointCloud.from_numpy((v[0] * 0.5).astype(np.float32),
+                                (v[0] * 0.5 + 0.5).astype(np.float32),
+                                v[0].astype(np.float32))
+    cam = Camera(H_c2w=TRM.get_H_c2w_lookat(
+        torch.tensor([[0.0, 0.2, -2.0], [1.5, 0.3, -1.0]]), torch.zeros(2, 3),
+        torch.tensor([[0.0, 1.0, 0.0]] * 2))[None],
+        intrinsic=derive_camera_intrinsics(96, 96, 60.0).expand(1, 2, 3, 3),
+        width_px=96, height_px=96)
+    want = pcd.rasterize_surfel(cam, shading=shading)
+    got = pcd.to(cuda).rasterize_surfel(cam.to(cuda), shading=shading)
+    assert got.rgb.device.type == "cuda"
+    same = ((got.hit_map.cpu() == want.hit_map)
+            & (got.rgb.cpu() == want.rgb).all(-1))
+    assert float(same.float().mean()) >= 0.999
+    both = same & (want.hit_map > 0.5)
+    assert int(both.sum()) > 1000
+    rel = ((got.depth.cpu() - want.depth).abs() / want.depth)[both]
+    assert float(rel.max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_k_neighbor_points_on_the_card_match_cpu(cuda):
+    """The same float32 operations one at a time on both devices, and one
+    int64 key per (distance, index): equal indices, distances and t."""
+    from gpcr_tpu_torch.utils import geometry as TG
+
+    rng = np.random.RandomState(2)
+    pts = torch.from_numpy(rng.randn(1, 20000, 3).astype(np.float32))
+    o = torch.from_numpy((rng.randn(1, 300, 3) * 2).astype(np.float32))
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(1, 300, 3).astype(np.float32)), dim=-1)
+    want = TG.get_k_neighbor_points_in_chunks(pts, o, d, k=8, chunk_rays=64,
+                                              t_min=0.5, t_max=3.0)
+    got = TG.get_k_neighbor_points_in_chunks(pts.to(cuda), o.to(cuda), d.to(cuda),
+                                             k=8, chunk_rays=64, t_min=0.5,
+                                             t_max=3.0)
+    assert torch.equal(got["sorted_idxs"].cpu(), want["sorted_idxs"])
+    for k in ("sorted_dists", "sorted_ts"):
+        assert float((got[k].cpu() - want[k]).nan_to_num(0.0, 0.0, 0.0)
+                     .abs().max()) <= 1e-6, k
+
+
+@pytest.mark.gpu
+def test_interpolate_trilinear_and_prune_on_the_card_match_cpu(cuda):
+    """Trilinear features within 1e-6 and pruned codes / features equal."""
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    rng = np.random.RandomState(3)
+    coords = torch.from_numpy(rng.randint(0, 40, (20000, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.randn(20000, 8).astype(np.float32))
+    grid = TSP.quantize_average(coords, feats)
+    pts = torch.from_numpy(rng.uniform(-1, 41, (30000, 3)).astype(np.float32))
+    gpu_grid = TSP.quantize_average(coords.to(cuda), feats.to(cuda))
+    assert torch.equal(gpu_grid.codes.cpu(), grid.codes)
+    want = TSP.interpolate_trilinear(grid, pts)
+    got = TSP.interpolate_trilinear(gpu_grid.replace(feats=grid.feats.to(cuda)),
+                                    pts.to(cuda))
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    keep = torch.from_numpy(rng.rand(grid.num) > 0.5)
+    p_cpu, p_gpu = TSP.prune(grid, keep), TSP.prune(
+        grid.replace(codes=grid.codes.to(cuda), feats=grid.feats.to(cuda)),
+        keep.to(cuda))
+    assert torch.equal(p_gpu.codes.cpu(), p_cpu.codes)
+    assert torch.equal(p_gpu.feats.cpu(), p_cpu.feats)

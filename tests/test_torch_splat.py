@@ -221,3 +221,10 @@ def test_circle_trajectory_and_raster_params_match_jax():
                                params=manual).cam_poses,
            JT.CameraTrajectory("manual", n_imgs=3, total=2,
                                params=manual).cam_poses)
+
+
+def test_unpack_sym6_matches_jax():
+    c6 = np.random.RandomState(4).randn(5, 2, 6).astype(np.float32)
+    got = TS.unpack_sym6(torch.from_numpy(c6)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(JS.unpack_sym6(jnp.asarray(c6))))
+    np.testing.assert_array_equal(got, np.swapaxes(got, -1, -2))
