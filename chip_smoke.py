@@ -93,7 +93,19 @@ Phases, each printing what it found:
    against their plain versions at this path's view-0 shape, and the
    rasterizer's forward + backward is timed at 800K analytic gaussians,
    1024², C = 3 (each shape with its ``[tile-work]`` line);
-12. one JSON line describing the four kernels, then the result line.
+12. sharded: the serving kernel with a tile window on each window of a
+   4-way split of the learned view 0 (the split a 4-card ``--shard tiles``
+   run makes) against its plain version (max 1e-4 / mean 1e-6), the
+   assembled windows bit-equal to the unwindowed kernel, and per window
+   its entries, windowed-binning and kernel times (``[sharded]``); then,
+   in a one-rank NCCL process group, the 12 golden views through
+   ``simple --shard views`` (PNGs byte-equal to the golden phase's) and
+   ``--shard tiles`` (within one uint8 level; both >= 50 dB, the launch
+   counter reset before each and 24 launches after: a warm and a timed
+   run of 12 views), and ``train --sp 1``
+   for 3 steps, whose losses must be the training phase's within 1e-4;
+13. one JSON line describing the four kernels (kernel 1 also with its
+   launches in the ``--shard tiles`` run), then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
@@ -151,6 +163,10 @@ POISSON_SUBSAMPLE, ALPHA_SUBSAMPLE, VMF_SAMPLES = 200_000, 50_000, 1_000_000
 # of a surface sampled about once per voxel, so only silhouette pixels may
 # miss)
 KNN_COVER = 0.9
+# phase_sharded: the learned view 0 split as a 4-card tiles run splits it;
+# its train --sp 1 losses against phase_train's of the same seed (the
+# U-Net's index_add_ atomics sum in another order from run to run)
+SHARD_WINDOWS, SHARD_LOSS_REL = 4, 1e-4
 MANUAL_EYES = ["0 0.3 3", "3 0.3 0", "0 -0.3 -3", "-3 -0.3 0"]
 TRAIN_ARGS = ["--batch_size", "1", "--n_points", "200000", "--n_views", "2",
               "--hw", "512", "--scale_factor", "448", "--warmup", "1",
@@ -430,32 +446,35 @@ def phase_aligned_vs_plain(torch, dev):
     return worst
 
 
-def phase_golden(torch, B):
+def _golden_cli(B, tag, *more):
+    """The ``simple`` CLI task on the golden cloud (12 views) into
+    ``WORK/<tag>``; returns (its output directory, PSNR dB per view against
+    the golden PNGs)."""
     import numpy as np
 
-    from gpcr_tpu_torch.io import read_png
+    from gpcr_tpu_torch.io import read_png, read_ply, write_ply
 
     golden = os.path.join(HERE, "tests", "golden")
     with open(os.path.join(golden, "manifest.json")) as f:
         m = json.load(f)
     ds = os.path.join(WORK, "golden_ds", "scene")
-    os.makedirs(ds, exist_ok=True)
-    # the golden cloud has no normals, and for such a cloud the simple task
-    # first estimates them on the host (a brute-force kNN, minutes for 100K
-    # points) although it renders none: hand it the cloud with placeholders
-    from gpcr_tpu_torch.io import read_ply, write_ply
-
-    cloud = read_ply(os.path.join(golden, "pcd_0.ply"))
-    write_ply(os.path.join(ds, "pcd_0.ply"), cloud["xyz"], cloud["rgb"],
-              np.zeros_like(cloud["xyz"]))
-    rpth = os.path.join(WORK, "golden_out") + "/"
+    if not os.path.isdir(ds):
+        os.makedirs(ds)
+        # the golden cloud has no normals, and for such a cloud the simple
+        # task first estimates them on the host (a brute-force kNN, minutes
+        # for 100K points) although it renders none: hand it the cloud with
+        # placeholders
+        cloud = read_ply(os.path.join(golden, "pcd_0.ply"))
+        write_ply(os.path.join(ds, "pcd_0.ply"), cloud["xyz"], cloud["rgb"],
+                  np.zeros_like(cloud["xyz"]))
+    rpth = os.path.join(WORK, tag) + "/"
     B.main([
         "simple", "--id_list", "scene",
         "--dataset_root", os.path.dirname(ds), "--rpth", rpth,
         "--skip_mesh", "--voxelized",
         "--scale_factor", str(m["scale_factor"]), "--fov", str(int(m["fov"])),
         "--sigma", str(m["sigma"]), "--background_color", "1",
-        "--device", "cuda",
+        "--device", "cuda", *more,
     ])
     out_dir = rpth + f"scene_simple_sigma_{m['sigma']}"
     psnrs = []
@@ -464,6 +483,11 @@ def phase_golden(torch, B):
         ref = read_png(os.path.join(golden, f"rgb_{i}.png")).astype(np.float64)
         mse = np.mean((got - ref) ** 2)
         psnrs.append(99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse))
+    return out_dir, psnrs
+
+
+def phase_golden(torch, B):
+    _, psnrs = _golden_cli(B, "golden_out")
     log("[golden] PSNR dB per view: " + " ".join(f"{p:.2f}" for p in psnrs))
     check(len(psnrs) == 12 and min(psnrs) >= 50.0,
           f"golden PSNR below 50 dB: {min(psnrs)}")
@@ -2024,6 +2048,130 @@ def phase_timing_raster(torch):
     return kernels
 
 
+def phase_sharded(torch, B, RS, ckpt, train):
+    """The multi-GPU paths on the one card: the serving kernel with a tile
+    window on every window of a 4-way split of the learned view 0 (against
+    its plain version; assembled, the unwindowed kernel's bits; entries,
+    binning and kernel times per window), then, in a one-rank NCCL group,
+    the 12 golden views through ``simple --shard views`` and ``--shard
+    tiles`` and ``train --sp 1`` against the unsharded runs of this script.
+    Returns (per-window records, the kernel's launches in the tiles run)."""
+    import numpy as np
+
+    from gpcr_tpu_torch.cli import train as T
+    from gpcr_tpu_torch.io import read_png
+    from gpcr_tpu_torch.parallel import distributed
+    from gpcr_tpu_torch.parallel.render import window_of
+    from gpcr_tpu_torch.utils.blend_inputs import view0_prep
+
+    splats = _learned_splats(torch, ckpt)
+    config = splats["config"]._replace(downscale=2)
+    prep, channels, res = view0_prep(splats)
+    gx = -(-res // 16)
+    nt = gx * gx
+    with torch.no_grad():
+        stream, starts, ovf = RS.bin_sorted_stream(prep, nt, gx, config)
+        order, _ = RS.render_order(starts, ovf, nt, config)
+        full = (stream, starts, order, nt, gx, channels, config)
+        acc, t = RS.blend_tiles(*full)
+        bin_ms = _event_ms(torch, lambda: RS.bin_sorted_stream(
+            prep, nt, gx, config), 5)
+        k1 = _event_ms(torch, lambda: RS.blend_tiles(*full), 20)
+        windows, parts = [], []
+        for d in range(SHARD_WINDOWS):
+            base, count = window_of(nt, SHARD_WINDOWS, d)
+            w_stream, w_starts, w_ovf = RS.bin_sorted_stream(
+                prep, nt, gx, config, tile_window=(base, count))
+            w_order, _ = RS.render_order(w_starts, w_ovf, count, config)
+            args = (w_stream, w_starts, w_order, count, gx, channels, config)
+            got = RS.blend_tiles(*args, tile_base=base)
+            torch.cuda.synchronize()
+            ref = RS.blend_tiles_plain(*args, tile_base=base)
+            errs = [(a - b).abs() for a, b in zip(got, ref)]
+            mx = max(float(e.max()) for e in errs)
+            mean = max(float(e.mean()) for e in errs)
+            check(mx <= MAX_ERR and mean <= MEAN_ERR, f"windowed kernel, "
+                  f"window {d}, disagrees with plain: {mx} / {mean}")
+            parts.append(got)
+            windows.append(dict(
+                window=d, base=base, tiles=count,
+                entries=int(w_stream.shape[0]),
+                binning_ms=_event_ms(torch, lambda: RS.bin_sorted_stream(
+                    prep, nt, gx, config, tile_window=(base, count)), 5),
+                kernel_ms=_event_ms(
+                    torch, lambda: RS.blend_tiles(*args, tile_base=base), 20),
+                max_abs_err=mx))
+        k2 = _event_ms(torch, lambda: RS.blend_tiles(*full), 20)
+    check(bool(torch.equal(torch.cat([p[0] for p in parts])[:nt], acc)
+               and torch.equal(torch.cat([p[1] for p in parts])[:nt], t)),
+          "the assembled windows differ from the unwindowed kernel's output")
+    check(sum(w["entries"] for w in windows) == int(stream.shape[0]),
+          "the windows' entries do not add up to the frame's")
+    worst = max(w["kernel_ms"] for w in windows)
+    log("[sharded] learned view 0 in " + str(SHARD_WINDOWS) + " windows: "
+        + json.dumps({"entries": int(stream.shape[0]), "tiles": nt,
+                      "kernel_ms": [k1, k2], "binning_ms": bin_ms,
+                      "windows": windows,
+                      "max_window_over_kernel": worst / min(k1, k2)}))
+
+    # a one-rank NCCL group: the collectives of the sharded entry points
+    rdv = os.path.join(WORK, "rendezvous")
+    check(distributed.initialize(init_method="file://" + rdv, world_size=1,
+                                 rank=0), "no process group was started")
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              f"backend {torch.distributed.get_backend()}, not nccl")
+        golden = {}
+        for mode in ("views", "tiles"):
+            RS.LAUNCHES = 0
+            out_dir, psnrs = _golden_cli(B, f"golden_{mode}", "--shard", mode)
+            golden[mode] = (out_dir, psnrs, RS.LAUNCHES)
+            log(f"[sharded] golden --shard {mode}: PSNR dB per view "
+                + " ".join(f"{p:.2f}" for p in psnrs)
+                + f"; serving kernel launches {RS.LAUNCHES}")
+            check(len(psnrs) == 12 and min(psnrs) >= 50.0,
+                  f"--shard {mode} golden PSNR below 50 dB: {min(psnrs)}")
+            # the CLI renders every view twice: a warm run, a timed run
+            check(RS.LAUNCHES == 24, f"--shard {mode} launched the serving "
+                  f"kernel {RS.LAUNCHES} times, not twice per view")
+        unsharded = os.path.join(WORK, "golden_out", os.path.basename(
+            golden["views"][0]))
+        for name in sorted(os.listdir(unsharded)):
+            check(_same_bytes(os.path.join(unsharded, name),
+                              os.path.join(golden["views"][0], name)),
+                  f"--shard views: {name} differs from the unsharded PNG")
+            ref = read_png(os.path.join(unsharded, name)).astype(np.int32)
+            tiles = read_png(os.path.join(golden["tiles"][0], name))
+            level = int(np.abs(tiles.astype(np.int32) - ref).max())
+            check(level <= 1, f"--shard tiles: {name} is {level} uint8 "
+                  "levels off the unsharded PNG")
+
+        # the same seed as phase_train: steps 1-3 must give its losses (step
+        # 1 has learning rate 0; step 3's loss follows step 2's update)
+        t0 = time.time()
+        got = T.main(["--steps", "3", "--sp", "1", "--out_dir",
+                      os.path.join(WORK, "train_sp"), *TRAIN_ARGS])
+        sp_seconds = time.time() - t0
+        check(got["trainer"].mesh.world is not None,
+              "train --sp 1 ran without the process group")
+    finally:
+        torch.distributed.destroy_process_group()
+    ref_hist = train["history"][:3]
+    for h, r in zip(got["history"], ref_hist):
+        rel = abs(h["loss"] - r["loss"]) / abs(r["loss"])
+        check(rel <= SHARD_LOSS_REL, f"train --sp 1 step {h['step']}: loss "
+              f"{h['loss']} against the unsharded {r['loss']}")
+    log("[sharded] train --sp 1 in a one-rank NCCL group: loss per step "
+        + " ".join(f"{h['loss']:.6f}" for h in got["history"])
+        + " (unsharded " + " ".join(f"{r['loss']:.6f}" for r in ref_hist)
+        + "); s/step " + " ".join(f"{h['s_per_step']:.3f}"
+                                  for h in got["history"])
+        + " (unsharded " + " ".join(f"{r['s_per_step']:.3f}"
+                                    for r in ref_hist)
+        + f"); {sp_seconds:.1f} s in all")
+    return windows, golden["tiles"][2]
+
+
 def main() -> int:
     try:
         import torch
@@ -2082,6 +2230,8 @@ def main() -> int:
         run(phase_train_stages, torch, train["trainer"])
         k_contrib, k_bwd = run(phase_timing_train, torch, train["trainer"])
         run(phase_timing_raster, torch)
+        windows, windowed_launches = run(phase_sharded, torch, B, RS, ckpt,
+                                         train)
         # the port imports nothing of the JAX package
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "gpcr_tpu"))
@@ -2105,7 +2255,7 @@ def main() -> int:
         {"name": "stream_blend", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/stream_blend.cu",
          "replaces": TPU_KERNEL, "launches": launches, **serve,
-         "library_ms": None},
+         "library_ms": None, "windowed_launches": windowed_launches},
         {"name": "stream_blend_contrib", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/stream_blend.cu",
          "replaces": TPU_KERNEL_CONTRIB, "launches": train["launches"][0],

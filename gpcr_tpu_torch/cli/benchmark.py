@@ -19,8 +19,17 @@ The parser keeps the JAX CLI's flags and adds ``--device`` (default
 ``cuda``; the CPU runs the blend's plain PyTorch version and must be asked
 for). ``simple --down_sample_ratio`` voxel-downsamples the cloud on the
 device with cells of width 2 for any ratio other than 1.0, as the JAX CLI
-does. Not ported yet: ``--shard`` (multi-device) raises
-NotImplementedError.
+does.
+
+``--shard views|tiles`` renders over every rank of the process group,
+one process per card (``parallel/render.py``: the views split over the
+ranks, or each frame's tile grid):
+
+    torchrun --nproc_per_node 4 -m gpcr_tpu_torch.cli.benchmark simple \
+        --shard tiles ...
+
+Rank 0 alone writes the images, the ground truth and the scores, and
+prints the timing line. Without a launcher it runs as a world of one.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 
 from ..io import save_pic
 from ..ops.rasterize import RasterizeConfig
+from ..parallel import distributed
 from ..render.renderer import PCMLRender, SimpleRender, generate_cam
 from ..structures.camera import Camera
 from ..structures.mesh import Mesh
@@ -123,9 +133,10 @@ def get_pcrender_renders(args, device):
     rdr = PCMLRender(
         args.ckpt, voxelized=args.voxelized, scale_factor=args.scale_factor,
         offset=args.offset, warm_timing=True, config=_raster_config(args),
-        device=device,
+        device=device, shard=_shard(args),
     )
     camera, cam_info = _camera_for(args, "pcrender", device)
+    main_rank = distributed.is_main()
     input_offset = np.array(args.input_offset.split(","), dtype=np.float32)
     print("[Info] input_offset:", input_offset)
     outs = {}
@@ -143,13 +154,16 @@ def get_pcrender_renders(args, device):
                 keep = torch.as_tensor(np.random.choice(
                     n, int(n * args.down_sample_ratio), replace=False),
                     device=device)
+                if torch.distributed.is_initialized():
+                    # every rank renders rank 0's subsample
+                    torch.distributed.broadcast(keep, src=0)
                 pcd = pcd.replace(
                     xyz_w=pcd.xyz_w[:, keep], rgb=pcd.rgb[:, keep],
                     normal_w=(pcd.normal_w[:, keep]
                               if pcd.normal_w is not None else None),
                     valid_mask=None,
                 )
-            if not args.skip_mesh:
+            if not args.skip_mesh and main_rank:
                 t0 = time.time()
                 _save_mesh_gt(args, id, camera, rpth)
                 timing["gt_time"] = time.time() - t0
@@ -160,8 +174,9 @@ def get_pcrender_renders(args, device):
                 point_light=point_light_dict.get(id),
                 background_color=args.background_color, timing=timing,
             )
-            _save_render_outputs(out, rpth, f"{id}_pcrender")
-        if not args.skip_mesh:
+            if main_rank:
+                _save_render_outputs(out, rpth, f"{id}_pcrender")
+        if not args.skip_mesh and main_rank:
             t0 = time.time()
             timing["scores"] = _score(rpth, rpth + f"{id}_pcrender",
                                       rpth + f"{id}_mesh_gt", device)
@@ -187,8 +202,10 @@ def get_simple_renders(args, device):
     rdr = SimpleRender(
         voxelized=args.voxelized, scale_factor=args.scale_factor,
         offset=args.offset, config=_raster_config(args), warm_timing=True,
+        shard=_shard(args),
     )
     camera, cam_info = _camera_for(args, "simple", device)
+    main_rank = distributed.is_main()
     input_offset = np.array(args.input_offset.split(","), dtype=np.float32)
     print("[Info] input_offset:", input_offset)
     outs = {}
@@ -212,7 +229,7 @@ def get_simple_renders(args, device):
                 print("[Info] avg_dist:",
                       _avg_nn_dist(pcd.xyz_w[0].cpu().numpy()))
                 pcd = pcd.estimate_normals()
-            if not args.skip_mesh:
+            if not args.skip_mesh and main_rank:
                 t0 = time.time()
                 _save_mesh_gt(args, id, camera, rpth)
                 timing["gt_time"] = time.time() - t0
@@ -224,14 +241,19 @@ def get_simple_renders(args, device):
                 background_color=float(np.mean(args.background_color)),
                 sigma=args.sigma, timing=timing,
             )
-            _save_render_outputs(out, rpth, tag)
-        if not args.skip_mesh:
+            if main_rank:
+                _save_render_outputs(out, rpth, tag)
+        if not args.skip_mesh and main_rank:
             t0 = time.time()
             timing["scores"] = _score(rpth, rpth + tag,
                                       rpth + f"{id}_mesh_gt", device)
             timing["score_time"] = time.time() - t0
         outs[id] = (out, timing)
     return outs
+
+
+def _shard(args):
+    return None if args.shard == "none" else args.shard
 
 
 def get_camera_info(args, device):
@@ -308,7 +330,10 @@ def build_parser():
                    help="grid budget on non-empty tiles (0 = all)")
     p.add_argument("--shard", type=str, default="none",
                    choices=["none", "views", "tiles"],
-                   help="multi-device rendering; only 'none' is ported")
+                   help="render over every rank of the process group "
+                        "(one process per card, e.g. under torchrun): "
+                        "'views' splits the views, 'tiles' each frame's "
+                        "tile grid (parallel/render.py)")
     p.add_argument("--num_frames", type=int, default=12)
     p.add_argument("--use_t_indices", action="store_true")
     p.add_argument("--t_idx_pth", type=str, default="t_idx.npy")
@@ -324,25 +349,36 @@ def main(argv=None):
     without ``--skip_mesh``, gt_time and score_time (host seconds of the
     mesh ground truth and of the scoring) and scores = {psnr, msssim,
     lpips (None when its weights are absent)}. ``cam`` returns the saved
-    Camera."""
+    Camera. With ``--shard`` the outputs are every rank's; files, scores
+    and the timing line are rank 0's."""
     args = build_parser().parse_args(argv)
     bc = args.background_color.split(",")
     if len(bc) == 1:
         args.background_color = np.array([float(bc[0])] * 3, np.float32)
     else:
         args.background_color = np.array(bc, dtype=np.float32) / 255.0
-    if args.shard != "none":
-        raise NotImplementedError("--shard (multi-device) is not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is "
                            "False; pass --device cpu to render on the CPU")
-    print(f"[Info] device: {device}", flush=True)
-    if args.task == "pcrender":
-        return get_pcrender_renders(args, device)
-    if args.task == "simple":
-        return get_simple_renders(args, device)
-    return get_camera_info(args, device)
+    started = _shard(args) is not None and distributed.initialize(
+        backend="gloo" if device.type == "cpu" else None)
+    if _shard(args) is not None and not torch.distributed.is_initialized():
+        raise ValueError(
+            f"--shard {args.shard} needs a process group: run one process "
+            f"per card under torchrun (torchrun --nproc_per_node N -m "
+            f"gpcr_tpu_torch.cli.benchmark ...), or start one with "
+            f"parallel.distributed.initialize() before main()")
+    try:
+        print(f"[Info] device: {device}", flush=True)
+        if args.task == "pcrender":
+            return get_pcrender_renders(args, device)
+        if args.task == "simple":
+            return get_simple_renders(args, device)
+        return get_camera_info(args, device)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

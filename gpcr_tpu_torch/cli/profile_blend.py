@@ -36,9 +36,10 @@ a directory holding another version's ``stream_blend.cu``,
 they include, e.g. ``git show <rev>:...`` or a copy with one step undone)
 and, for kernels 1, 2 and 4, with its tiles launched by ascending id
 instead of longest first: every run once, then again in the reverse turn.
-A baseline replay backward whose C entry takes no scratch, and a baseline
-aligned blend whose C entry takes no tile order, are called through their
-own interfaces. With ``--diag`` it builds every library that has the
+A baseline serving blend is called with the parameters its source
+declares; a baseline replay backward whose C entry takes no scratch, and
+a baseline aligned blend whose C entry takes no tile order, are called
+through their own interfaces. With ``--diag`` it builds every library that has the
 diagnostic setters with ``-DGPCR_DIAG`` and adds per-CTA spans (global
 timer) and SM ids (the kernel's span, the longest CTA and its start, when
 half and 90% of the CTAs were done, the SMs' busy share) and, from the
@@ -51,8 +52,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
+import re
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -112,6 +115,50 @@ def _parent_bwd(lib, stream, starts, order, dl_dout, n_contrib, dt_tot,
     if rc != 0:
         raise RuntimeError(f"baseline stream_blend_bwd launch failed ({rc})")
     return grads
+
+
+@functools.lru_cache(maxsize=None)
+def _c_params(src_dir: str, name: str, entry: str):
+    """[(parameter name, is a pointer)] of the C entry ``entry`` as
+    ``<src_dir>/<name>.cu`` declares it (read once: the timed calls must
+    not wait on the host)."""
+    with open(os.path.join(src_dir, name + ".cu")) as f:
+        m = re.search(r"\b" + entry + r"\(([^)]*)\)\s*\{", f.read())
+    if m is None:
+        raise ValueError(f"no {entry}(...) in {src_dir}/{name}.cu")
+    return [(re.split(r"[\s*]+", p.strip())[-1], "*" in p)
+            for p in m.group(1).split(",")]
+
+
+def _serving(lib, stream, starts, order, nt, gx, channels, config):
+    """Kernel 1 of ``lib``. A baseline's ``gpcr_stream_blend`` is called
+    with the parameters its source declares, by name (a version before
+    the tile window has no ``tile_base``)."""
+    if not hasattr(lib, "source_dir"):  # this tree's build
+        with cuda_build.use_library("stream_blend", lib):
+            return RS.blend_tiles(stream, starts, order, nt, gx, channels,
+                                  config)
+    p_out = 256 // config.downscale ** 2
+    acc = torch.zeros((nt, p_out, channels), device=stream.device)
+    t = torch.ones((nt, p_out), device=stream.device)
+    value = {
+        "stream": stream.data_ptr(), "ncols": stream.shape[1],
+        "starts": starts.data_ptr(), "order": order.data_ptr(),
+        "n_order": order.numel(), "grid_x": gx, "tile_base": 0,
+        "channels": channels, "chunk": config.chunk_size,
+        "downscale": config.downscale, "acc_out": acc.data_ptr(),
+        "t_out": t.data_ptr(),
+        "cuda_stream": torch.cuda.current_stream(stream.device).cuda_stream,
+    }
+    params = _c_params(lib.source_dir, "stream_blend", "gpcr_stream_blend")
+    fn = lib.gpcr_stream_blend
+    fn.argtypes = [ctypes.c_void_p if ptr else ctypes.c_int
+                   for _, ptr in params]
+    fn.restype = ctypes.c_int
+    rc = fn(*(value[k] for k, _ in params))
+    if rc != 0:
+        raise RuntimeError(f"baseline stream_blend launch failed ({rc})")
+    return acc, t
 
 
 def _aligned(lib, cstarts, scal, feat, nt, gx, channels, config, order):
@@ -202,10 +249,15 @@ def _upstream(nt, channels, seed, device):
 
 def _baselines(dirs, name: str, defines=()) -> dict:
     """{label: library} of the baseline directories holding
-    ``<name>.cu`` (label: the directory's name)."""
-    return {os.path.basename(os.path.normpath(d)): cuda_build.load(
-        name, csrc_dir=d, defines=defines) for d in dirs
-        if os.path.isfile(os.path.join(d, name + ".cu"))}
+    ``<name>.cu`` (label: the directory's name); each library's
+    ``source_dir`` is its directory."""
+    libs = {}
+    for d in dirs:
+        if os.path.isfile(os.path.join(d, name + ".cu")):
+            lib = cuda_build.load(name, csrc_dir=d, defines=defines)
+            lib.source_dir = d
+            libs[os.path.basename(os.path.normpath(d))] = lib
+    return libs
 
 
 def _in_turns(runs: dict, reps: int, device) -> dict:
@@ -255,8 +307,7 @@ def profile_serving(tag, inputs, args, device):
         return RS.blend_tiles(stream, starts, order, nt, gx, channels, config)
 
     def variant(lib):
-        with cuda_build.use_library("stream_blend", lib):
-            return call()
+        return _serving(lib, stream, starts, order, nt, gx, channels, config)
     ids = torch.arange(nt, dtype=torch.int32, device=device)
     runs = {"current": call, "ascending tile ids": lambda: call(ids)}
     for label, lib in _baselines(args.baseline, "stream_blend").items():

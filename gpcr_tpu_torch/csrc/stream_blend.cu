@@ -17,6 +17,10 @@
 //   acc_out (num_tiles, P_out, C) f32 and t_out (num_tiles, P_out) f32, written
 //           at the tile's own position (tiles never rendered keep what the
 //           caller filled in: acc 0, T 1). P_out = 256, or 64 with downscale 2.
+//   tile_base (serving kernel) the global id of local tile 0: starts, order
+//           and the outputs index a window of the tile grid (the tile-sharded
+//           path, the TPU kernel's prefetched base), the pixel origin is
+//           that of global tile tile_base + t; 0 for the whole grid.
 //
 // What bounds it on Hopper. Every walked (entry, pixel) pair costs its alpha
 // and the two skip tests (16 FP32 operations, one of them expf); only a live
@@ -172,8 +176,8 @@ template <int C, bool kVec4>
 __global__ void __launch_bounds__(kPix)
 stream_blend_kernel(const float* __restrict__ stream, int ncols,
                     const int* __restrict__ starts,
-                    const int* __restrict__ order, int grid_x, int chunk,
-                    int downscale, bool vec, size_t mask_off,
+                    const int* __restrict__ order, int grid_x, int tile_base,
+                    int chunk, int downscale, bool vec, size_t mask_off,
                     float* __restrict__ acc_out, float* __restrict__ t_out) {
   GPCR_DIAG_SPAN;
   gpcr::WarpDiag wd;
@@ -190,8 +194,9 @@ stream_blend_kernel(const float* __restrict__ stream, int ncols,
   const int warp = tid >> 5;
   const gpcr::WarpPixel wp = gpcr::warp_pixel(tid);
   const int p = wp.p;
-  const float x0 = (float)((tile % grid_x) * kTile);
-  const float y0 = (float)((tile / grid_x) * kTile);
+  const int global_tile = tile_base + tile;
+  const float x0 = (float)((global_tile % grid_x) * kTile);
+  const float y0 = (float)((global_tile / grid_x) * kTile);
   const float px = x0 + (float)wp.lx;
   const float py = y0 + (float)wp.ly;
 
@@ -375,8 +380,8 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <int C>
 cudaError_t launch(const float* stream, int ncols, const int* starts,
-                   const int* order, int n_order, int grid_x, int chunk,
-                   int downscale, float* acc_out, float* t_out,
+                   const int* order, int n_order, int grid_x, int tile_base,
+                   int chunk, int downscale, float* acc_out, float* t_out,
                    cudaStream_t st) {
   const bool vec = gpcr::rows_vectorizable(stream, ncols);
   size_t floats = (size_t)2 * chunk * ncols;
@@ -390,8 +395,8 @@ cudaError_t launch(const float* stream, int ncols, const int* starts,
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<n_order, kPix, smem, st>>>(stream, ncols, starts, order, grid_x,
-                                      chunk, downscale, vec, mask_off,
-                                      acc_out, t_out);
+                                      tile_base, chunk, downscale, vec,
+                                      mask_off, acc_out, t_out);
   return cudaGetLastError();
 }
 
@@ -442,16 +447,17 @@ extern "C" {
 
 // Both return a cudaError_t value: 0 on a successful launch.
 int gpcr_stream_blend(const float* stream, int ncols, const int* starts,
-                      const int* order, int n_order, int grid_x, int channels,
-                      int chunk, int downscale, float* acc_out, float* t_out,
-                      void* cuda_stream) {
+                      const int* order, int n_order, int grid_x, int tile_base,
+                      int channels, int chunk, int downscale, float* acc_out,
+                      float* t_out, void* cuda_stream) {
   if (n_order <= 0) return (int)cudaSuccess;
-  if (chunk <= 0 || ncols < 8 + channels || (downscale != 1 && downscale != 2))
+  if (chunk <= 0 || ncols < 8 + channels || tile_base < 0 ||
+      (downscale != 1 && downscale != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)cuda_stream;
 #define GPCR_SERVE(NC)                                                      \
-  launch<NC>(stream, ncols, starts, order, n_order, grid_x, chunk, downscale, \
-             acc_out, t_out, st)
+  launch<NC>(stream, ncols, starts, order, n_order, grid_x, tile_base, chunk, \
+             downscale, acc_out, t_out, st)
   GPCR_CHANNEL_SWITCH(GPCR_SERVE)
 #undef GPCR_SERVE
 }

@@ -32,6 +32,7 @@ contributor count the replay backward needs.
 from __future__ import annotations
 
 import ctypes
+import typing as T
 
 import torch
 
@@ -64,6 +65,7 @@ def bin_sorted_stream(
     grid_x: int,
     config: R.RasterizeConfig,
     return_entries: bool = False,
+    tile_window=None,
 ):
     """Depth presort -> rank emit -> one (tile, rank) sort -> stream gather.
 
@@ -72,6 +74,13 @@ def bin_sorted_stream(
     counts entries never emitted (dup cap) or cut by a positive
     ``k_budget``. With ``return_entries`` also returns the sorted ranks
     (E,) and the presort permutation (n,) (rank -> original index).
+
+    ``tile_window=(base, count)`` bins only tiles [base, base + count), in
+    LOCAL tile ids (the per-window binning of the tile-sharded path,
+    ``parallel/render.py``): the emit is the full one, entries of other
+    tiles are dropped before the sort, ``starts`` has count + 1 rows, and
+    ``k_budget`` cuts and counts LOCAL entries only (the dup-cap overflow
+    stays the whole frame's, as in ``gpcr_tpu``).
     """
     n = prep.depth.shape[0]
     dev = prep.depth.device
@@ -85,6 +94,10 @@ def bin_sorted_stream(
     # 2. rank emit
     rank, tile, overflow = R.emit_tiles(
         prep.rect[gidx_s], prep.valid[gidx_s], cap, grid_x)
+    if tile_window is not None:
+        base, num_tiles = tile_window
+        local = (tile >= base) & (tile < base + num_tiles)
+        rank, tile = rank[local], tile[local] - base
     total = rank.numel()
 
     # 3. the (tile, rank) sort on one unique int64 key
@@ -138,12 +151,19 @@ def blend_tiles(
     channels: int,
     config: R.RasterizeConfig,
     with_contrib: bool = False,
+    tile_base: int = 0,
 ):
     """Composite the tiles listed in ``order`` over their stream ranges.
 
     Returns (acc (num_tiles, P_out, C), T (num_tiles, P_out)) in tile
     order; tiles not in ``order`` keep acc 0 and T 1. CUDA tensors run
     the CUDA kernel, CPU tensors the plain PyTorch version.
+
+    ``tile_base``: ``starts``, ``order`` and the outputs index the tiles of
+    a window that starts at global tile ``tile_base`` (``bin_sorted_stream
+    (tile_window=...)``); the pixel coordinates are those of global tile
+    ``tile_base + t``. The training forward (``with_contrib``) takes no
+    window.
 
     ``with_contrib`` (``downscale == 1`` only) adds n_contrib
     (num_tiles, P) int32: per pixel, the number of positions of its
@@ -154,15 +174,17 @@ def blend_tiles(
     if with_contrib and config.downscale != 1:
         raise ValueError("with_contrib renders at native resolution "
                          "(downscale 1)")
+    if with_contrib and tile_base:
+        raise ValueError("with_contrib takes no tile window")
     if stream.is_cuda:
         return _blend_tiles_cuda(
             stream, starts, order, num_tiles, grid_x, channels, config,
-            with_contrib)
+            with_contrib, tile_base)
     if stream.device.type != "cpu":
         raise ValueError(f"no blend for device {stream.device}")
     return blend_tiles_plain(
         stream, starts, order, num_tiles, grid_x, channels, config,
-        with_contrib)
+        with_contrib, tile_base=tile_base)
 
 
 def blend_tiles_plain(
@@ -175,8 +197,10 @@ def blend_tiles_plain(
     config: R.RasterizeConfig,
     with_contrib: bool = False,
     with_live: bool = False,
+    tile_base: int = 0,
 ):
-    """The plain PyTorch version of the blend kernel (any device).
+    """The plain PyTorch version of the blend kernel (any device);
+    ``tile_base`` as in ``blend_tiles``.
 
     Vectorised over (tiles, pixels): tiles go in batches of
     ``config.tile_batch`` (bounding every temporary to tile_batch x
@@ -221,8 +245,9 @@ def blend_tiles_plain(
         if max_cnt == 0:
             continue
         nb = tiles.numel()
-        px = ((tiles % grid_x) * tx).to(torch.float32)[:, None] + lx[None]
-        py = ((tiles // grid_x) * ty).to(torch.float32)[:, None] + ly[None]
+        gt = tiles + tile_base  # pixel coordinates are global
+        px = ((gt % grid_x) * tx).to(torch.float32)[:, None] + lx[None]
+        py = ((gt // grid_x) * ty).to(torch.float32)[:, None] + ly[None]
         px = px[:, None, :]  # (B, 1, P)
         py = py[:, None, :]
         T_run = torch.ones((nb, p), dtype=torch.float32, device=dev)
@@ -349,7 +374,8 @@ def check_blend_inputs(stream, starts, order, num_tiles, channels,
 
 
 def _blend_tiles_cuda(stream, starts, order, num_tiles, grid_x, channels,
-                      config: R.RasterizeConfig, with_contrib: bool = False):
+                      config: R.RasterizeConfig, with_contrib: bool = False,
+                      tile_base: int = 0):
     """Launch ``csrc/stream_blend.cu`` on the current CUDA stream."""
     global LAUNCHES, LAUNCHES_CONTRIB
     if config.downscale not in (1, 2):
@@ -376,7 +402,7 @@ def _blend_tiles_cuda(stream, starts, order, num_tiles, grid_x, channels,
     else:
         rc = lib.gpcr_stream_blend(
             stream.data_ptr(), stream.shape[1], starts.data_ptr(),
-            order.data_ptr(), order.numel(), grid_x, channels,
+            order.data_ptr(), order.numel(), grid_x, tile_base, channels,
             config.chunk_size, config.downscale, acc.data_ptr(), t.data_ptr(),
             cuda_stream,
         )
@@ -405,7 +431,7 @@ def _stream_blend_lib():
     if not getattr(lib, "_gpcr_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gpcr_stream_blend.argtypes = [
-            vp, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+            vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.gpcr_stream_blend.restype = ci
         lib.gpcr_stream_blend_contrib.argtypes = [
             vp, ci, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
@@ -440,20 +466,29 @@ def render_order(starts, overflow, num_tiles: int,
 
 def blend_stream(
     prep: R.Preprocessed,
-    bg: torch.Tensor,  # (C,)
+    bg: T.Optional[torch.Tensor],  # (C,)
     num_tiles: int,
     grid_x: int,
     config: R.RasterizeConfig,
     channels: int,
+    tile_base: int = 0,
+    tile_count: T.Optional[int] = None,
 ):
-    """Bin + blend. Returns (out (num_tiles, P_out, C), final_T
-    (num_tiles, P_out), overflow () i64). Tiles render in
-    ``render_order``."""
+    """Bin + blend + background of tiles [tile_base, tile_base +
+    tile_count) of a ``num_tiles`` grid (all of them by default): (out
+    (count, P_out, C), final_T (count, P_out), overflow () i64) in local
+    tile order. ``bg=None`` leaves the background out (the tile-sharded
+    path composites it once the windows are gathered). Tiles render in
+    ``render_order``, so ``max_active_tiles`` is a budget per window."""
+    count = num_tiles if tile_count is None else tile_count
+    window = None if tile_count is None else (tile_base, tile_count)
     stream, starts, overflow = bin_sorted_stream(prep, num_tiles, grid_x,
-                                                 config)
-    order, overflow = render_order(starts, overflow, num_tiles, config)
-    acc, t_run = blend_tiles(stream, starts, order, num_tiles, grid_x,
-                             channels, config)
+                                                 config, tile_window=window)
+    order, overflow = render_order(starts, overflow, count, config)
+    acc, t_run = blend_tiles(stream, starts, order, count, grid_x, channels,
+                             config, tile_base=tile_base)
+    if bg is None:
+        return acc, t_run, overflow
     out = acc + t_run[..., None] * bg.to(acc.dtype)[None, None, :]
     return out, t_run, overflow
 

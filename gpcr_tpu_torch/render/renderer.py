@@ -281,13 +281,16 @@ def _exact_budget(config: R.RasterizeConfig) -> R.RasterizeConfig:
 
 def _finish(out: dict, point_light, model_time, rgb_time,
             timing: T.Optional[dict]) -> dict:
-    print("model time: %.3f sec, rgb time: %.3f sec" % (model_time, rgb_time),
-          flush=True)
+    from ..parallel.distributed import is_main
+
+    if is_main():  # one timing line per run, from rank 0
+        print("model time: %.3f sec, rgb time: %.3f sec"
+              % (model_time, rgb_time), flush=True)
     ovf = int(out.pop("dup_overflow").sum())
     if timing is not None:
         timing.update(model_time=model_time, rgb_time=rgb_time,
                       dup_overflow=ovf)
-    if ovf:
+    if ovf and is_main():
         print(f"[Warn] rasterizer dropped {ovf} splat-tile entries "
               f"(raise the dup cap / k_budget)", flush=True)
     ret = {k: (v[None] if v is not None else None) for k, v in out.items()}
@@ -296,6 +299,36 @@ def _finish(out: dict, point_light, model_time, rgb_time,
             {k: v[0] for k, v in ret.items() if v is not None}, point_light
         )[None]
     return ret
+
+
+def _make_sharded_runner(shard: str, shard_mesh=None):
+    """A drop-in for ``render_views_fused`` that renders over every rank
+    (``parallel.render.render_views_sharded``). ``shard`` is 'views' or
+    'tiles'; the mesh defaults to all ranks on 'sp' (without a process
+    group: one rank, one window)."""
+    from ..parallel.distributed import get_world_size
+    from ..parallel.render import render_views_sharded
+    from ..parallel.sharding import make_mesh
+
+    if shard not in ("views", "tiles"):
+        raise ValueError(f"unknown shard mode {shard!r}")
+    mesh = shard_mesh or make_mesh(sp=get_world_size())
+
+    def run(*args, **kw):
+        return render_views_sharded(mesh, shard, *args, **kw)
+
+    return run
+
+
+def _views_runner(rdr):
+    """What renders a renderer's views: ``render_views_fused``, or with
+    ``rdr.shard`` its sharded runner (made at the first render, when the
+    process group it lays out exists)."""
+    if not rdr.shard:
+        return render_views_fused
+    if rdr._shard_runner is None:
+        rdr._shard_runner = _make_sharded_runner(rdr.shard, rdr.shard_mesh)
+    return rdr._shard_runner
 
 
 def _concat_batch(outs: T.List[dict]) -> dict:
@@ -310,17 +343,23 @@ def _concat_batch(outs: T.List[dict]) -> dict:
 
 class SimpleRender:
     """No-network analytic baseline: identity quaternions, isotropic
-    σ/scale_factor scales, opacity 1, SH DC = RGB2SH(rgb) with zero AC."""
+    σ/scale_factor scales, opacity 1, SH DC = RGB2SH(rgb) with zero AC.
+    ``shard`` ('views' | 'tiles') renders over every rank
+    (``parallel.render.render_views_sharded``) on ``shard_mesh``."""
 
     def __init__(self, voxelized=True, scale_factor=None, offset=512,
                  config: R.RasterizeConfig = R.RasterizeConfig(),
-                 warm_timing: bool = False):
+                 warm_timing: bool = False, shard: T.Optional[str] = None,
+                 shard_mesh=None):
         self.voxelized = voxelized
         self.scale_factor = 1.0 if scale_factor is None else scale_factor
         self.offset = offset
         self.config = config
         # run the rgb pass once before the timed one
         self.warm_timing = warm_timing
+        self.shard = shard
+        self.shard_mesh = shard_mesh
+        self._shard_runner = None
 
     def render(
         self, pcd: PointCloud, scale, cam: Camera, fov: float,
@@ -370,9 +409,10 @@ class SimpleRender:
             cam, fov, bg=bg3, sh_degree=sh_deg,
             super_sample_rate=super_sample_rate)
         config = _exact_budget(self.config)
+        fused = _views_runner(self)
 
         def run():
-            return render_views_fused(
+            return fused(
                 rp["view_t"], rp["full_t"], rp["campos"],
                 means, scales, rotations, opacity, shs,
                 torch.zeros_like(means), valid, bg3, rp["tanfov"],
@@ -430,6 +470,7 @@ class PCMLRender:
     ``params`` is a JAX-layout nested dict of arrays (what ``load_pcml``
     returns); without ``ckpt`` or ``params`` the encoder keeps its random
     init from ``generator`` (default: ``torch.Generator().manual_seed(0)``).
+    ``shard`` / ``shard_mesh`` as in ``SimpleRender``.
     """
 
     def __init__(
@@ -439,6 +480,7 @@ class PCMLRender:
         config: R.RasterizeConfig = R.RasterizeConfig(),
         warm_timing: bool = False, device="cuda",
         generator: T.Optional[torch.Generator] = None,
+        shard: T.Optional[str] = None, shard_mesh=None,
     ):
         if ckpt is not None:
             params, info = load_pcml(ckpt)
@@ -460,6 +502,9 @@ class PCMLRender:
         self.offset = offset
         self.config = config
         self.warm_timing = warm_timing
+        self.shard = shard
+        self.shard_mesh = shard_mesh
+        self._shard_runner = None
         # geometry cache: MinkowskiEngine's coordinate manager keeps kernel
         # maps per sparse tensor, so the reference's timed pass after warmup
         # re-runs only the network; one cloud's plan is kept, keyed on the
@@ -548,9 +593,10 @@ class PCMLRender:
             cam, fov, bg=bg3, sh_degree=self.info.sh_deg,
             super_sample_rate=super_sample_rate)
         config = _exact_budget(self.config)
+        fused = _views_runner(self)
 
         def run():
-            return render_views_fused(
+            return fused(
                 rp["view_t"], rp["full_t"], rp["campos"],
                 means, scales, sp.rotation, opacity, sp.sh, normal,
                 sp.valid, bg3, rp["tanfov"],

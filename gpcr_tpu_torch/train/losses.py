@@ -51,24 +51,35 @@ def render_losses(
     out: dict,  # renderer outputs: rgb/normal/hitmap (q, h, w, 3)
     gt: dict,  # gt images: rgb, normal_w, hit_map
     weights: LossWeights = LossWeights(),
+    view_share: float = 1.0,
+    mask_total=None,
 ):
-    """Weighted total + per-term dict."""
+    """Weighted total + per-term dict.
+
+    A rank that holds ``view_share`` of a cloud's views (view-parallel
+    training) gets its part of the cloud's loss, so that the parts over
+    the ranks sum to the loss of all views: the means are scaled by
+    ``view_share``, and the masked normal term is divided by the hit count
+    of all views, ``mask_total``, instead of this rank's."""
     hit_gt = gt["hit_map"]
     if hit_gt.dim() == out["hitmap"].dim() - 1:
         hit_gt = hit_gt[..., None]
     terms = {}
-    terms["rgb"] = l1(out["rgb"], gt["rgb"])
+    terms["rgb"] = l1(out["rgb"], gt["rgb"]) * view_share
     if out.get("normal") is not None and gt.get("normal_w") is not None:
         # normals only matter where the surface is hit
-        terms["normal"] = weights.normal_l2 * l2(
-            out["normal"], gt["normal_w"], mask=hit_gt
-        )
+        if mask_total is None:
+            normal = l2(out["normal"], gt["normal_w"], mask=hit_gt)
+        else:
+            normal = (torch.sum((out["normal"] - gt["normal_w"]) ** 2 * hit_gt)
+                      / torch.clamp(mask_total, min=1.0))
+        terms["normal"] = weights.normal_l2 * normal
     terms["hit"] = focal_bce(
         torch.clamp(out["hitmap"][..., :1], 0.0, 1.0),
         hit_gt,
         alpha=weights.focal_alpha,
         gamma=weights.focal_gamma,
-    )
+    ) * view_share
     total = (
         weights.rgb * terms["rgb"]
         + weights.normal * terms.get("normal", 0.0)

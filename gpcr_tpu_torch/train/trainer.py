@@ -3,8 +3,16 @@
 
 End-to-end differentiable quantize -> SparseUNet -> differentiable stream
 rasterizer (``ops/rasterize_stream_vjp.py``: contributor-count forward and
-replay-backward kernels) -> image losses, on one device. The JAX
-package's ``vmap``s over clouds and views are Python loops here.
+replay-backward kernels) -> image losses. The JAX package's ``vmap``s over
+clouds and views are Python loops here.
+
+On a ('dp', 'sp') ``parallel.sharding`` mesh each rank takes its slice of
+the global batch (``shard_batch``: clouds over dp, views over sp) and the
+loss of its (cloud, view) pairs, weighted by their share of the global
+batch, so that the SUM of the ranks' gradients is the gradient of the
+global mean loss that JAX's sharded step takes; the gradients are summed
+over all ranks before the clip and the Adam step, which every rank then
+takes on the same values.
 
 The optimizer reproduces the JAX package's optax chain
 (clip_by_global_norm -> adam with a linear-warmup schedule) exactly: the
@@ -96,6 +104,7 @@ class Trainer:
         learning_rate: float = 1e-5,
         num_warmup_steps: int = 4000,
         clip: float = 1.0,
+        mesh=None,
     ):
         self.info = (info if isinstance(info, PCMLInfo)
                      else PCMLInfo.from_dict(info))
@@ -119,6 +128,10 @@ class Trainer:
         self.optimizer = make_optimizer(
             self.model.parameters(), learning_rate, num_warmup_steps, clip)
         self.step_count = 0
+        # None: one process holding the whole batch; so is a mesh without
+        # a process group (1 x 1), whose collectives would only copy
+        self.mesh = mesh if mesh is not None and mesh.world is not None \
+            else None
 
     # ---- forward ---------------------------------------------------------
 
@@ -172,11 +185,13 @@ class Trainer:
         }
 
     def _per_cloud_loss(self, coords, rgb, valid, view_t, full_t, campos,
-                        gt_rgb, gt_normal, gt_hit, tanfov):
+                        gt_rgb, gt_normal, gt_hit, tanfov, view_share=1.0,
+                        mask_total=None):
         out = self._per_cloud_render(
             coords, rgb, valid, view_t, full_t, campos, tanfov)
         gt = {"rgb": gt_rgb, "normal_w": gt_normal, "hit_map": gt_hit}
-        total, terms = L.render_losses(out, gt, self.weights)
+        total, terms = L.render_losses(out, gt, self.weights, view_share,
+                                       mask_total)
         return total, terms, out["dup_overflow"]
 
     def loss_fn(self, batch: dict):
@@ -184,23 +199,38 @@ class Trainer:
         campos (B, V, 3); gt_rgb/gt_normal (B, V, h, w, 3);
         gt_hit (B, V, h, w, 1); tanfov scalar. Returns (mean total, mean
         terms); the dropped splat-tile entries of the batch are left in
-        ``self.last_dup_overflow``."""
+        ``self.last_dup_overflow``.
+
+        On a mesh, ``batch`` is this rank's slice (``shard_batch``) and the
+        results are this rank's part of the global means: the sum over
+        the ranks is the global mean."""
         pin_fp32()
+        b = batch["coords"].shape[0]
+        dp, sp = ((self.mesh.shape["dp"], self.mesh.shape["sp"])
+                  if self.mesh is not None else (1, 1))
+        mask_total = None
+        if sp > 1:
+            # the normal term's hit count over all views of each cloud
+            mask_total = self.mesh.all_reduce(
+                batch["gt_hit"].reshape(b, -1).sum(1), "sum", ("sp",))
         totals, terms_all, overflow = [], [], []
-        for ib in range(batch["coords"].shape[0]):
+        for ib in range(b):
             total, terms, ovf = self._per_cloud_loss(
                 batch["coords"][ib], batch["rgb"][ib], batch["valid"][ib],
                 batch["view_t"][ib], batch["full_t"][ib], batch["campos"][ib],
                 batch["gt_rgb"][ib], batch["gt_normal"][ib],
                 batch["gt_hit"][ib], float(batch["tanfov"]),
+                view_share=1.0 / sp,
+                mask_total=None if mask_total is None else mask_total[ib],
             )
             totals.append(total)
             terms_all.append(terms)
             overflow.append(ovf.sum())
         self.last_dup_overflow = torch.stack(overflow).sum()
-        mean_terms = {k: torch.mean(torch.stack([t[k] for t in terms_all]))
+        n = b * dp  # clouds in the global batch
+        part_terms = {k: torch.stack([t[k] for t in terms_all]).sum() / n
                       for k in terms_all[0]}
-        return torch.mean(torch.stack(totals)), mean_terms
+        return torch.stack(totals).sum() / n, part_terms
 
     @torch.no_grad()
     def eval_psnr(self, batch: dict) -> torch.Tensor:
@@ -225,12 +255,42 @@ class Trainer:
         self.optimizer.zero_grad()
         total, terms = self.loss_fn(batch)
         total.backward()
-        self.optimizer.step()
-        self.step_count += 1
         metrics = {"loss": total.detach(),
                    **{k: v.detach() for k, v in terms.items()}}
+        if self.mesh is not None:
+            self._all_reduce_grads()
+            # every rank logs the global metrics
+            keys = list(metrics)
+            summed = self.mesh.all_reduce(torch.stack(
+                [metrics[k].to(torch.float32) for k in keys]))
+            metrics = dict(zip(keys, summed.unbind()))
+            self.last_dup_overflow = self.mesh.all_reduce(
+                self.last_dup_overflow.clone())
+        self.optimizer.step()
+        self.step_count += 1
         metrics["dup_overflow"] = self.last_dup_overflow
         return metrics
+
+    def _all_reduce_grads(self):
+        """Sum the gradients over all ranks, in one flat buffer laid out
+        over every parameter, so that every rank reduces the same layout
+        (zeros where this rank has no gradient). A count per parameter
+        rides along: a parameter that no rank gave a gradient keeps None,
+        as it would in one process."""
+        params = self.optimizer.params
+        parts = [p.grad.reshape(-1) if p.grad is not None
+                 else torch.zeros(p.numel(), dtype=p.dtype, device=p.device)
+                 for p in params]
+        parts.append(torch.tensor([float(p.grad is not None) for p in params],
+                                  dtype=params[0].dtype,
+                                  device=params[0].device))
+        flat = self.mesh.all_reduce(torch.cat(parts))
+        *summed, seen = flat.split([p.numel() for p in params] + [len(params)])
+        for i, (p, part) in enumerate(zip(params, summed)):
+            if p.grad is not None:
+                p.grad.copy_(part.view_as(p))
+            elif float(seen[i]) > 0:  # reads the count only where needed
+                p.grad = part.view_as(p).clone()
 
 
 # ---- train-state checkpointing (render/checkpoint.py handles bare model

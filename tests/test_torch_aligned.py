@@ -32,6 +32,11 @@ from gpcr_tpu_torch.render.renderer import pin_fp32
 from test_rasterize import make_camera_matrices, random_scene
 from test_torch_stream import _adversarial_rows, _configs, _preps, scene
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 pin_fp32()  # parity precision: full-float32 matmuls, no TF32 on a card
 
 

@@ -32,6 +32,11 @@ from gpcr_tpu_torch.structures.mesh import Mesh
 from gpcr_tpu_torch.structures.pointcloud import PointCloud
 from gpcr_tpu_torch.structures.trajectory import CameraTrajectory
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 FOV, SF = 60, 96
 CAM_INFO = {"fov": FOV, "width_px": 32, "height_px": 32, "mode": "circle",
             "n_imgs": 2, "d": 0, "r": 3, "center_angles": [90, 0]}

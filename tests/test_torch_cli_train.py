@@ -9,6 +9,11 @@ import torch
 
 from gpcr_tpu_torch.cli import train as T
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 TINY = ["--device", "cpu", "--batch_size", "1", "--n_points", "256",
         "--n_views", "1", "--hw", "16", "--channels", "9 8 8 8 8 8",
         "--log_every", "1", "--warmup", "2", "--lr", "1e-3"]
@@ -43,8 +48,37 @@ def test_train_cli_checkpoints_and_resumes(tmp_path):
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # dp x sp must equal the world: one process cannot take --sp 2
+    with pytest.raises(ValueError, match="world"):
         T.main(["--sp", "2", *TINY])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.main(["--steps", "1", "--device", "cuda"])
+
+
+def test_train_cli_sp_in_a_world_of_one(tmp_path):
+    """``--sp 1`` in a one-rank gloo group (the dp x sp path: replicate,
+    shard_batch, the all-reduced gradients and metrics) takes the same two
+    steps as the run without a process group; rank 0 writes the
+    checkpoint."""
+    import torch.distributed as dist
+
+    from gpcr_tpu_torch.parallel import distributed
+
+    argv = ["--steps", "2", "--sp", "1", *TINY]
+    ref = T.main(["--out_dir", str(tmp_path / "ref"), *argv])
+    assert ref["trainer"].mesh is None  # no group: the one-process step
+    assert distributed.initialize(
+        init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1,
+        rank=0, backend="gloo")
+    try:
+        got = T.main(["--out_dir", str(tmp_path / "sp"), *argv])
+        assert got["trainer"].mesh.world is not None
+    finally:
+        dist.destroy_process_group()
+    assert [h["loss"] for h in got["history"]] == [
+        h["loss"] for h in ref["history"]]
+    want = ref["trainer"].model.state_dict()
+    for k, v in got["trainer"].model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    assert os.path.isfile(tmp_path / "sp" / "checkpoint" / "step_2.pt")

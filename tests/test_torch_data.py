@@ -21,6 +21,11 @@ from gpcr_tpu_torch.structures.camera import Camera
 from gpcr_tpu_torch.structures.ray import Ray
 from gpcr_tpu_torch.train import data as TD
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 
 def _both_cameras(seed, n_views=3, hw=12):
     jcam = JD.random_view_camera(np.random.RandomState(seed), n_views, hw)

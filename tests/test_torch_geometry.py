@@ -38,6 +38,11 @@ from gpcr_tpu_torch.utils import geometry as TG
 from gpcr_tpu_torch.utils import sampling as TS
 from gpcr_tpu_torch.utils import timing as TT
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 pin_fp32()
 
 

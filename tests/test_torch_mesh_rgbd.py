@@ -34,6 +34,11 @@ from gpcr_tpu_torch.structures.trajectory import CameraTrajectory
 from gpcr_tpu_torch.train import data as TD
 from gpcr_tpu_torch.utils import rigid_motion as TRM
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 EYES = np.array([[0.3, -0.2, -2.2], [2.0, 0.5, 0.3], [-0.4, 1.9, 1.1]],
                 np.float32)
 

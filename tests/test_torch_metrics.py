@@ -26,6 +26,11 @@ from gpcr_tpu_torch.metrics import lpips as TL
 from gpcr_tpu_torch.render import renderer as TRD
 from gpcr_tpu_torch.render.checkpoint import lpips_from_jax_params
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 
 def _pair(h, w, seed=0, channels=3):
     """Two correlated 0-255 images, (C, H, W) float32."""

@@ -29,6 +29,11 @@ from gpcr_tpu_torch.io import read_png, read_ply, write_ply, write_png
 from gpcr_tpu_torch.utils import media as TMD
 from gpcr_tpu_torch.utils import preprocess_obj as TPO
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 
 def _tree(root):
     return sorted(os.path.relpath(os.path.join(r, f), root)

@@ -22,6 +22,11 @@ from gpcr_tpu_torch import native_bindings as TNB
 from gpcr_tpu_torch.io import ply as tply
 from gpcr_tpu_torch.structures.pointcloud import PointCloud
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 ATTRS = PointCloud._ATTRS
 
 

@@ -19,6 +19,11 @@ from gpcr_tpu_torch.structures import mesh as TM
 from gpcr_tpu_torch.structures import reconstruct as TREC
 from gpcr_tpu_torch.structures.pointcloud import PointCloud
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 
 def _sphere(n, seed=0, solid=False):
     rng = np.random.RandomState(seed)

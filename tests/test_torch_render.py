@@ -28,6 +28,10 @@ from gpcr_tpu_torch.render import renderer as TRD
 from gpcr_tpu_torch.structures.camera import Camera
 from gpcr_tpu_torch.structures.pointcloud import PointCloud
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
 TRD.pin_fp32()  # parity precision: full-float32 matmuls, no TF32 on a card
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +39,10 @@ GOLDEN = os.path.join(REPO, "tests", "golden")
 OUTPUTS = ("rgb", "xyz_w", "hitmap", "normal")
 CAM16 = {"fov": 60, "width_px": 16, "height_px": 16, "mode": "circle",
          "n_imgs": 1, "d": 0, "r": 3, "center_angles": [90, 0]}
+# the CLI camera of tests/test_torch_cli_benchmark.py: 2 views of 32 px
+# (the CLI's own 12 views of 512² x2 are held on the card by chip_smoke.py)
+CAM32 = {"fov": 60, "width_px": 32, "height_px": 32, "mode": "circle",
+         "n_imgs": 2, "d": 0, "r": 3, "center_angles": [90, 0]}
 
 
 def synthetic_cloud(n=600, seed=0, grid=128):
@@ -127,9 +135,15 @@ def test_simple_path_reproduces_golden_frames():
 
 
 _CLI_SCRIPT = """
-import sys
+import json, sys
+import torch
 from gpcr_tpu_torch.cli import benchmark as B
-root = sys.argv[1]
+from gpcr_tpu_torch.render.renderer import generate_cam
+root, cam_info = sys.argv[1], json.loads(sys.argv[2])
+torch.set_num_threads(1)
+# the CLI's 12 views of 512² x2 are held on the card by chip_smoke.py
+B._camera_for = lambda args, task, device: (
+    generate_cam(cam_info, device=device), cam_info)
 common = ["--id_list", "scene", "--dataset_root", root + "/ds",
           "--rpth", root + "/out/", "--skip_mesh", "--voxelized",
           "--scale_factor", "64", "--dup_cap", "256", "--device", "cpu"]
@@ -137,7 +151,7 @@ simple = B.main(["simple"] + common)
 pcr = B.main(["pcrender", "--ckpt", root + "/run/checkpoint/m.pth"] + common)
 for res in (simple, pcr):
     out, timing = res["scene"]
-    assert out["rgb"].shape == (1, 12, 512, 512, 3), out["rgb"].shape
+    assert out["rgb"].shape == (1, 2, 32, 32, 3), out["rgb"].shape
     assert timing["dup_overflow"] == 0
 print("JAX_LOADED", "jax" in sys.modules)
 """
@@ -160,14 +174,14 @@ def test_cli_runs_without_jax(tmp_path):
     torch.save(PCEncoder(info, generator=torch.Generator().manual_seed(0))
                .state_dict(), str(tmp_path / "run" / "checkpoint" / "m.pth"))
     r = subprocess.run(
-        [sys.executable, "-c", _CLI_SCRIPT, str(tmp_path)],
+        [sys.executable, "-c", _CLI_SCRIPT, str(tmp_path), json.dumps(CAM32)],
         capture_output=True, text=True, cwd=REPO, timeout=600,
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert r.returncode == 0, r.stderr[-3000:]
     assert "JAX_LOADED False" in r.stdout, r.stdout[-2000:]
     assert "model time:" in r.stdout
-    for tag, n in (("scene_simple_sigma_1.0", 12), ("scene_pcrender", 12)):
+    for tag, n in (("scene_simple_sigma_1.0", 2), ("scene_pcrender", 2)):
         files = os.listdir(tmp_path / "out" / tag)
         assert sum(f.startswith("rgb_") for f in files) == n, (tag, files)
 
@@ -235,10 +249,54 @@ def test_load_pcml_reads_run_options(tmp_path, name):
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     base = ["--rpth", str(tmp_path) + "/", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="shard"):
-        TB.main(["simple", "--shard", "views"] + base)
-    with pytest.raises(NotImplementedError, match="shard"):
-        TB.main(["cam", "--shard", "tiles"] + base)
+    monkeypatch.setattr(TB, "_camera_for", lambda args, task, device: (
+        TRD.generate_cam(CAM32, device=device), CAM32))
+    # --shard is ported: in a one-rank gloo group, 'views' gives the
+    # unsharded CLI run's images and PNGs byte for byte, and 'tiles'
+    # (rendered at full size and halved afterwards, as gpcr_tpu does) the
+    # same images within 1e-5 and PNGs within one uint8 level
+    xyz, rgb, sf = synthetic_cloud(n=300, seed=4)
+    os.makedirs(tmp_path / "sh" / "a")
+    write_ply(str(tmp_path / "sh" / "a" / "pcd_0.ply"), xyz, rgb,
+              np.zeros_like(xyz))
+
+    def cli(shard):
+        rpth = str(tmp_path / f"out_{shard}") + "/"
+        out, _ = TB.main(["simple", "--skip_mesh", "--id_list", "a",
+                          "--dataset_root", str(tmp_path / "sh"),
+                          "--voxelized", "--scale_factor", str(sf),
+                          "--rpth", rpth, "--device", "cpu",
+                          "--shard", shard])["a"]
+        png = os.path.join(rpth, "a_simple_sigma_1.0")
+        return out["rgb"], [read_png(os.path.join(png, f"rgb_{i}.png"))
+                            for i in range(CAM32["n_imgs"])]
+
+    ref, ref_png = cli("none")
+    assert float((ref - 1.0).abs().max()) > 1e-2  # the cloud is seen
+    # without a launcher or a group a sharded run refuses to start, and
+    # does not quietly render on one rank
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    for shard in ("views", "tiles"):
+        with pytest.raises(ValueError, match="torchrun"):
+            cli(shard)
+    import torch.distributed as dist
+
+    from gpcr_tpu_torch.parallel import distributed
+
+    assert distributed.initialize(
+        init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1,
+        rank=0, backend="gloo")
+    try:
+        views, views_png = cli("views")
+        tiles, tiles_png = cli("tiles")
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(views, ref)
+    assert all(np.array_equal(a, b) for a, b in zip(views_png, ref_png))
+    np.testing.assert_allclose(tiles.numpy(), ref.numpy(), atol=1e-5)
+    assert all(np.abs(a.astype(int) - b).max() <= 1
+               for a, b in zip(tiles_png, ref_png))
     # --down_sample_ratio is ported: any ratio other than 1.0 renders the
     # cloud voxel-downsampled with cells of width 2, as the JAX CLI does
     # (whose voxel_downsampling needs 64-bit keys: jax_enable_x64)

@@ -27,6 +27,11 @@ from gpcr_tpu_torch.ops import sparse as TSP
 from gpcr_tpu_torch.render import checkpoint as TCK
 from gpcr_tpu_torch.render.renderer import pin_fp32
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 pin_fp32()  # parity precision: full-float32 matmuls, no TF32 on a card
 
 INFO = {

@@ -36,6 +36,11 @@ from gpcr_tpu_torch.render.renderer import pin_fp32
 from test_rasterize import make_camera_matrices, random_scene
 from torch_streams import tile_stream
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 pin_fp32()
 
 BG = np.array([0.15, 0.25, 0.35], np.float32)

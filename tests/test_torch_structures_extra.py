@@ -34,6 +34,11 @@ from gpcr_tpu_torch.structures.pointcloud import PointCloud
 from gpcr_tpu_torch.structures.pointersect_record import PointersectRecord
 from gpcr_tpu_torch.structures.ray import Ray
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 
 def _poses(eyes, wh=40, fov=60.0):
     eyes = np.asarray(eyes, np.float32)

@@ -24,6 +24,11 @@ from gpcr_tpu_torch.train import data as TD
 from gpcr_tpu_torch.train import losses as TL
 from gpcr_tpu_torch.train import trainer as TT
 
+# one intra-op thread: under xdist each worker would start torch's pool
+# of a thread per CPU, and the oversubscribed pools slowed a 16 px train
+# step from 0.15 s to 95 s (6 workers on 8 CPUs)
+torch.set_num_threads(1)
+
 pin_fp32()
 
 INFO = {
