@@ -104,8 +104,26 @@ Phases, each printing what it found:
    counter reset before each and 24 launches after: a warm and a timed
    run of 12 views), and ``train --sp 1``
    for 3 steps, whose losses must be the training phase's within 1e-4;
-13. one JSON line describing the four kernels (kernel 1 also with its
-   launches in the ``--shard tiles`` run), then the result line.
+13. bench: the port's benchmark and demo entry points at their full
+   sizes: ``python -m gpcr_tpu_torch.bench`` at its defaults (800K
+   points, 1024² x2 = 2048² inside, 16 views per call; no dropped tile
+   or entry), ``scripts.bench_matrix`` c1 / c3a / c4 / c5 (c5 is the
+   first non-square frame, 3840x2160 inside), ``scripts.bench_train_step``
+   (3 reps; finite, non-zero gradients; peak memory),
+   ``scripts.bench_pcrender --dup_cap 256`` (the CLI in a subprocess, no
+   dropped entry) and ``scripts.train_demo`` for 100 of its 500 default
+   steps (held-out PSNR up by more than 0.5 dB; DEMO_STEPS says why) and
+   a resumed run of 5 more from its checkpoint, each JSON / ``#``
+   line printed as the entry point prints it, the launch counters reset
+   before each; device time by op and idle share of one headline call and
+   one demo step (``torch.profiler``); then the serving kernel at view 0
+   of the headline, c1, c4 and c5 scenes and the training kernels at the
+   demo's view 0 against their plain versions (max 1e-4 / mean 1e-6),
+   timed beside their bounds;
+14. one JSON line describing the four kernels (kernel 1 also with its
+   launches in the ``--shard tiles`` run; each with its launches in the
+   bench phase and its times at the benchmarks' shapes), then the result
+   line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
@@ -172,6 +190,16 @@ TRAIN_ARGS = ["--batch_size", "1", "--n_points", "200000", "--n_views", "2",
               "--hw", "512", "--scale_factor", "448", "--warmup", "1",
               "--channels", "9 32 64 128 256 128", "--log_every", "1",
               "--seed", "0", "--device", "cuda"]
+# phase_bench: train_demo's steps at its defaults (48², 2,048 points,
+# batch 2 x 2 views), then a resumed run of a few more. Its 500 default
+# steps took 505 s on an H100: a step runs over 10,000 small GEMMs of a
+# U-Net on ~2K voxels and the card idles 0.88-0.92 of it, which smaller
+# images or clouds do not cut (32², 1,024 points: 0.84-0.86 s per step);
+# 100 steps hold the smoke's time, and the held-out PSNR rose by 2.75 dB
+# by step 50 of that run
+DEMO_STEPS, DEMO_RESUME = 100, 5
+KERNEL_NAMES = ("stream_blend", "stream_blend_contrib", "stream_blend_bwd",
+                "aligned_blend")
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -496,27 +524,13 @@ def phase_golden(torch, B):
 
 def _learned_inputs(torch):
     """The synthetic 800K THuman-like cloud of scripts/bench_pcrender.py
-    (seed 0, scale factor 448) and a seeded full-width checkpoint."""
-    from gpcr_tpu_torch.cli.profile_pcrender import (LEARNED_INFO,
-                                                      synthetic_cloud)
-    from gpcr_tpu_torch.io import write_ply
-    from gpcr_tpu_torch.models.encoder import PCEncoder
-    from gpcr_tpu_torch.render.checkpoint import save_params
+    (seed 0, scale factor 448) and a seeded full-width checkpoint, written
+    by the port's twin of that script."""
+    from gpcr_tpu_torch.scripts.bench_pcrender import write_inputs
 
-    coords, rgb = synthetic_cloud(800_000, 448, seed=0)
-    ds = os.path.join(WORK, "learned_ds", "0519")
-    os.makedirs(ds, exist_ok=True)
-    write_ply(os.path.join(ds, "pcd_0.ply"), coords, rgb)
-
-    run = os.path.join(WORK, "learned_run")
-    os.makedirs(os.path.join(run, "option"), exist_ok=True)
-    os.makedirs(os.path.join(run, "checkpoint"), exist_ok=True)
-    with open(os.path.join(run, "option", "options.json"), "w") as f:
-        json.dump({"pcml_info": LEARNED_INFO}, f)
-    ckpt = os.path.join(run, "checkpoint", "model_epoch1.npz")
-    save_params(ckpt, PCEncoder(LEARNED_INFO,
-                                generator=torch.Generator().manual_seed(0)))
-    return os.path.dirname(ds), ckpt
+    root = os.path.join(WORK, "learned_ds")
+    ckpt = write_inputs(root, os.path.join(WORK, "learned_run"), 800_000, 448)
+    return root, ckpt
 
 
 def phase_learned(torch, B, RS):
@@ -699,40 +713,54 @@ def _pairs(torch, stream, starts, order, nt, gx, channels, config):
     return int(cnt.sum()), int(live.sum()), cnt
 
 
-def phase_timing(torch, sp):
-    """Kernel 1 at the learned view-0 shape; also returns the (walked,
-    live) pair counts of that stream, its number of entries, and its
-    contributor count and entries per tile."""
-    from gpcr_tpu_torch.utils.blend_inputs import view0_stream
+def _time_serving(torch, tag, stream, starts, order, nt, gx, channels,
+                  config):
+    """Kernel 1 against its plain version on one stream (max 1e-4 / mean
+    1e-6), then timed in turns plain / kernel / kernel / plain (CUDA
+    events, 20 launches per kernel turn), beside its bound on this data.
+    Returns (the kernels line's record, the (walked, live) pair counts,
+    the contributor count)."""
     from gpcr_tpu_torch.ops import rasterize_stream as RS
 
-    stream, starts, order, nt, gx, channels, config = view0_stream(sp)
     *pairs, cnt = _pairs(torch, stream, starts, order, nt, gx, channels,
                          config)
-    _log_tile_work("learned view 0", starts, order, cnt, config.chunk_size,
-                   forward=True)
     bound_ms, bound_by = _fwd_bound(
         pairs, stream.shape[0], stream.shape[1], channels,
         order.numel() * 256 // config.downscale ** 2, 0)
     mx, mean = _compare(torch, stream, starts, order, nt, gx, channels, config)
     check(mx <= MAX_ERR and mean <= MEAN_ERR,
-          f"kernel disagrees with plain at the main-path shape: {mx} / {mean}")
+          f"kernel disagrees with plain at {tag}: {mx} / {mean}")
     args = (stream, starts, order, nt, gx, channels, config)
     # plain, kernel, kernel, plain: the pairs bracket any drift
     p1 = _event_ms(torch, lambda: RS.blend_tiles_plain(*args), 3)
     k1 = _event_ms(torch, lambda: RS.blend_tiles(*args), 20)
     k2 = _event_ms(torch, lambda: RS.blend_tiles(*args), 20)
     p2 = _event_ms(torch, lambda: RS.blend_tiles_plain(*args), 3)
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    log(f"[timing] view-0 blend at 1024² internal, ds=2, C={channels}, "
-        f"entries={stream.shape[0]}, active tiles="
+    log(f"[timing] {tag} blend, ds={config.downscale}, C={channels}, "
+        f"chunk {config.chunk_size}, entries={stream.shape[0]}, tiles {nt} "
+        f"(grid_x {gx}), rendered {order.numel()}, active "
         f"{int((starts[1:] > starts[:-1]).sum())}: kernel {k1:.4f} / "
         f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (CUDA events); "
         f"max|d|={mx:.3e} mean|d|={mean:.3e}; {pairs[0]} (entry, pixel) "
-        f"pairs walked, {pairs[1]} of them live, bound {bound_ms:.4f} ms by {bound_by}")
-    return (dict(ms=ms, plain_ms=plain_ms, max_abs_err=mx, bound_ms=bound_ms,
-                 bound_by=bound_by), pairs, stream.shape[0],
-            (cnt, starts[1:] - starts[:-1]))
+        f"pairs walked, {pairs[1]} of them live, bound {bound_ms:.4f} ms by "
+        f"{bound_by}")
+    return (dict(ms=min(k1, k2), plain_ms=min(p1, p2), max_abs_err=mx,
+                 bound_ms=bound_ms, bound_by=bound_by), pairs, cnt)
+
+
+def phase_timing(torch, sp):
+    """Kernel 1 at the learned view-0 shape; also returns the (walked,
+    live) pair counts of that stream, its number of entries, and its
+    contributor count and entries per tile."""
+    from gpcr_tpu_torch.utils.blend_inputs import view0_stream
+
+    stream, starts, order, nt, gx, channels, config = view0_stream(sp)
+    serve, pairs, cnt = _time_serving(torch, "learned view 0 (1024² inside)",
+                                      stream, starts, order, nt, gx, channels,
+                                      config)
+    _log_tile_work("learned view 0", starts, order, cnt, config.chunk_size,
+                   forward=True)
+    return serve, pairs, stream.shape[0], (cnt, starts[1:] - starts[:-1])
 
 
 # --------------------------------------------------------------------------
@@ -1996,7 +2024,9 @@ def phase_timing_train(torch, trainer):
 
 def phase_timing_raster(torch):
     """Rasterizer-only forward + backward at 800K analytic gaussians,
-    1024², C = 3, dup cap 8, chunk 128, no k_budget: kernel A, kernel B and
+    1024², C = 3, dup cap 8, chunk 128, no k_budget (the scene of
+    ``scripts.bench_train_step``, whose k_budget of 6M and max_active of
+    4,096 cut nothing there): kernel A, kernel B and
     one whole forward + ``loss.backward()``, each in turns plain / kernel /
     kernel / plain. The plain turns of the whole step swap the two plain
     versions into the autograd Function (here only; the port never does)."""
@@ -2172,6 +2202,176 @@ def phase_sharded(torch, B, RS, ckpt, train):
     return windows, golden["tiles"][2]
 
 
+def _counted(RS, RV, counts, fn):
+    """Run ``fn`` with the three launch counters of the stream kernels set
+    to 0 just before; add what it launched to ``counts`` and return
+    (``fn``'s result, its (serving, count forward, replay backward)
+    launches)."""
+    RS.LAUNCHES = RS.LAUNCHES_CONTRIB = RV.LAUNCHES_BWD = 0
+    out = fn()
+    got = (RS.LAUNCHES, RS.LAUNCHES_CONTRIB, RV.LAUNCHES_BWD)
+    for name, n in zip(KERNEL_NAMES[:3], got):
+        counts[name] += n
+    return out, got
+
+
+def phase_bench(torch, RS, RV):
+    """The benchmark and demo entry points of the port at their full
+    sizes, through their ``main``s: ``bench`` at its defaults (800K
+    points, 1024² x2, 16 views per call, 5 timed calls), ``bench_matrix``
+    c1 / c3a / c4 / c5, ``bench_train_step`` (3 reps), ``bench_pcrender``
+    (``--dup_cap 256``, the CLI in a subprocess, whose launches this
+    process does not count) and ``train_demo`` (DEMO_STEPS steps, then a
+    resumed run of DEMO_RESUME more). Each launch counter is reset just
+    before each entry point; every one must have launched its kernels.
+    Then the serving kernel at view 0 of the headline, c1, c4 and c5
+    scenes and the two training kernels at the demo's view 0 are held
+    against their plain versions and timed. Returns (launches per kernel,
+    kernel 1's records per shape, kernels 2-3's at the demo shape)."""
+    from gpcr_tpu_torch import bench
+    from gpcr_tpu_torch.scripts import (bench_matrix, bench_pcrender,
+                                        bench_train_step, train_demo)
+    from gpcr_tpu_torch.train.data import DataLoader
+    from gpcr_tpu_torch.utils.blend_inputs import (bench_view0_stream,
+                                                   train_view0)
+
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    card = phase_device(torch)
+    head, got = _counted(RS, RV, counts, lambda: bench.main([]))
+    log(f"[bench] headline: {head['ms']:.4f} ms/frame median, per call "
+        f"{head['times_ms']}, nonempty_tiles {head['nonempty_tiles']}, "
+        f"dropped tiles / entries {head['dropped_tiles']} / "
+        f"{head['dropped_entries']}, render_dup_overflow "
+        f"{head['render_dup_overflow']}, tile_bin overflow "
+        f"{head['overflow']}; serving launches {got[0]}; {card}")
+    check(math.isfinite(head["ms"]), "bench gave no finite ms per frame")
+    check(got[0] == 6 * 16, f"bench launched the serving kernel {got[0]} "
+          "times, not 16 views x (1 warm + 5 timed calls)")
+    check(head["dropped_tiles"] == head["dropped_entries"]
+          == head["render_dup_overflow"] == head["overflow"] == 0,
+          "the headline frame dropped entries")
+
+    for key, cfg in bench_matrix.CONFIGS.items():
+        res, got = _counted(RS, RV, counts,
+                            lambda: bench_matrix.main([key]))
+        res = res[key]
+        calls = 1 + -(-(cfg.get("frames") or cfg["n_views"]) // cfg["vpd"])
+        check(math.isfinite(res["ms_per_frame"]),
+              f"{key}: no finite ms per frame")
+        check(got[0] == calls * cfg["vpd"], f"{key} launched the serving "
+              f"kernel {got[0]} times, not {calls} calls x {cfg['vpd']}")
+        log(f"[bench] {key}: {res['ms_per_frame']} ms/frame, per call "
+            f"{res['times_ms']}, {res['points']} points, dup_overflow "
+            f"{res['dup_overflow']}, render_dup_overflow "
+            f"{res['render_dup_overflow']}; serving launches {got[0]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    step, got = _counted(RS, RV, counts, lambda: bench_train_step.main(
+        ["--reps", "3"]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[bench] train step: {step['ms']:.2f} ms median of {step['times_ms']}"
+        f", first {step['first_s']:.2f} s, loss {step['loss']:.6f}, max|g| "
+        f"{step['max_grad']:.3e}, peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {got}")
+    check(step["grads_finite"] and step["max_grad"] > 0,
+          "bench_train_step's gradients are not finite or all zero")
+    check(got[1] == got[2] == 4, f"bench_train_step launched the training "
+          f"kernels {got[1:]} times, not 4 each (first + 3 reps)")
+
+    pcr = bench_pcrender.main(["--root", os.path.join(WORK, "bench_pcrender"),
+                               "--dup_cap", "256"])
+    check(pcr["returncode"] == 0, "bench_pcrender's CLI run failed")
+    check(any("rgb time" in line for line in pcr["lines"]),
+          "bench_pcrender printed no timing line")
+    check(not any("dropped" in line for line in pcr["lines"]),
+          "bench_pcrender dropped entries at --dup_cap 256")
+
+    out = os.path.join(WORK, "train_demo")
+    t0 = time.time()
+    demo, got = _counted(RS, RV, counts, lambda: train_demo.main(
+        ["--steps", str(DEMO_STEPS), "--out", out]))
+    demo_s = time.time() - t0
+    check(got[1] > 0 and got[2] > 0, f"train_demo launched the training "
+          f"kernels {got[1:]} times")
+    check(demo["improved"], "train_demo's held-out PSNR did not rise by "
+          "more than 0.5 dB")
+    curve = [(h["step"], round(h["psnr"], 4)) for h in demo["history"]
+             if "psnr" in h]
+    resumed, _ = _counted(RS, RV, counts, lambda: train_demo.main(
+        ["--steps", str(DEMO_STEPS + DEMO_RESUME), "--out", out,
+         "--resume"]))
+    steps = [h["step"] for h in resumed["history"] if "loss" in h]
+    # the resumed run starts from the saved weights: its held-out PSNR
+    # before its first step is the first run's last one (the U-Net's
+    # index_add_ sums in another order from run to run)
+    check(abs(resumed["psnr_start"] - curve[-1][1]) <= 1e-3,
+          f"the resumed train_demo starts at {resumed['psnr_start']} dB, "
+          f"the first run ended at {curve[-1][1]} dB")
+    check(resumed["start_step"] == DEMO_STEPS
+          and steps == list(range(1, DEMO_STEPS + DEMO_RESUME + 1))
+          and resumed["trainer"].optimizer.count == DEMO_STEPS + DEMO_RESUME,
+          f"the resumed train_demo started at {resumed['start_step']}")
+    log(f"[bench] train_demo: {DEMO_STEPS} steps in {demo_s:.1f} s, "
+        f"held-out PSNR by step {curve}; resumed from "
+        f"{resumed['start_step']} to {steps[-1]}")
+
+    def scene_of(kw):
+        """A bench_matrix config's scene and raster config."""
+        coords, rgb = bench_matrix.make_cloud(
+            kw["n_pts"], kw["sf"], quantize=kw.get("quantize", False))
+        return (bench_matrix.make_scene(coords, rgb, kw["sf"], kw["res_w"],
+                                        kw["res_h"], kw["n_views"]),
+                bench_matrix.raster_config(kw.get("dup_cap", 4),
+                                           kw["k_budget"],
+                                           kw.get("max_active", 8192)))
+
+    # bench's defaults as a bench_matrix config
+    headline = dict(n_pts=800_000, sf=448, res_w=1024, res_h=1024, n_views=5,
+                    dup_cap=4, k_budget=1_800_000, max_active=6144)
+    # device time by op and the card's idle share of one headline call (16
+    # views) and of one train_demo step
+    from gpcr_tpu_torch.cli.profile_pcrender import _traced
+
+    scene, config = scene_of(headline)
+    views = [j % 5 for j in range(16)]
+    bench_matrix.render(scene, config, views)
+    traces = {"headline call": _traced(
+        "headline call (16 views)",
+        lambda: bench_matrix.render(scene, config, views),
+        torch.device("cuda"), 12)}
+    trainer = demo["trainer"]
+    demo_batch = DataLoader(batch_size=2, n_points=2048, n_views=2, hw=48,
+                            scale_factor=96, seed=0, device="cuda").next_batch()
+    traces["train_demo step"] = _traced(
+        "train_demo step", lambda: trainer.train_step(demo_batch),
+        torch.device("cuda"), 12)
+
+    shapes = {}
+    for tag, kw in (("headline", headline),
+                    ("c1", bench_matrix.CONFIGS["c1"]),
+                    ("c4", bench_matrix.CONFIGS["c4"]),
+                    ("c5", bench_matrix.CONFIGS["c5"])):
+        scene, config = scene_of(kw)
+        (stream, starts, order, nt, gx, channels, config,
+         ovf) = bench_view0_stream(scene, config)
+        check(ovf == 0, f"{tag} view 0 drops {ovf} entries")
+        rec, _, _ = _time_serving(
+            torch, f"{tag} view 0 ({kw['res_w'] * 2}x{kw['res_h'] * 2} "
+            "inside)", stream, starts, order, nt, gx, channels, config)
+        shapes[tag] = dict(rec, entries=int(stream.shape[0]), tiles=nt,
+                           grid_x=gx)
+        del scene, stream
+    (stream, starts, order, nt, gx, channels, config,
+     _) = train_view0(trainer, 2048, 48, scale_factor=96)
+    demo_kernels = _time_training_kernels(
+        torch, "train_demo view 0 (48²)", stream, starts, order, nt, gx,
+        channels, config, seed=17)
+    log("[bench] launches of the entry points (bench_pcrender's CLI "
+        "subprocess not counted): " + json.dumps(counts))
+    log("[bench] traces: " + json.dumps(traces))
+    return counts, shapes, demo_kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -2229,12 +2429,13 @@ def main() -> int:
         train = run(phase_train, torch, RS, RV)
         run(phase_train_stages, torch, train["trainer"])
         k_contrib, k_bwd = run(phase_timing_train, torch, train["trainer"])
-        run(phase_timing_raster, torch)
+        k_raster = run(phase_timing_raster, torch)
         windows, windowed_launches = run(phase_sharded, torch, B, RS, ckpt,
                                          train)
+        bench, serve_shapes, k_demo = run(phase_bench, torch, RS, RV)
         # the port imports nothing of the JAX package
         leaked = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "gpcr_tpu"))
+                        if m.split(".")[0] in ("jax", "gpcr_tpu", "scripts"))
         check(not leaked, f"modules of the JAX package got imported: {leaked}")
         log(f"[done] all phases passed in {time.time() - t0:.1f} s")
         log(card)
@@ -2251,23 +2452,37 @@ def main() -> int:
         f"{BWD_L2_REL:g} * ||plain||_2 + {BWD_ABS:g})")
     # no single PyTorch call computes any of the four (a sorted,
     # early-terminating alpha blend and its replay), so library_ms is null
+    # bench_launches: each kernel's launches in phase_bench's entry points;
+    # bench_shapes: the kernel at the benchmarks' shapes (kernel 1 at view 0
+    # of the headline and c1 / c4 / c5; kernels 2-3 at bench_train_step's
+    # 800K scene, which phase_timing_raster times, and at train_demo's
+    # view 0)
     log(json.dumps({"kernels": [
         {"name": "stream_blend", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/stream_blend.cu",
          "replaces": TPU_KERNEL, "launches": launches, **serve,
-         "library_ms": None, "windowed_launches": windowed_launches},
+         "library_ms": None, "windowed_launches": windowed_launches,
+         "bench_launches": bench["stream_blend"],
+         "bench_shapes": serve_shapes},
         {"name": "stream_blend_contrib", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/stream_blend.cu",
          "replaces": TPU_KERNEL_CONTRIB, "launches": train["launches"][0],
-         **k_contrib, "library_ms": None},
+         **k_contrib, "library_ms": None,
+         "bench_launches": bench["stream_blend_contrib"],
+         "bench_shapes": {"bench_train_step": k_raster[0],
+                          "train_demo": k_demo[0]}},
         {"name": "stream_blend_bwd", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/stream_blend_bwd.cu",
          "replaces": TPU_KERNEL_BWD, "launches": train["launches"][1],
-         **k_bwd, "library_ms": None},
+         **k_bwd, "library_ms": None,
+         "bench_launches": bench["stream_blend_bwd"],
+         "bench_shapes": {"bench_train_step": k_raster[1],
+                          "train_demo": k_demo[1]}},
         {"name": "aligned_blend", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/aligned_blend.cu",
          "replaces": TPU_KERNEL_ALIGNED, "launches": aligned_launches,
-         **aligned, "library_ms": None},
+         **aligned, "library_ms": None,
+         "bench_launches": bench["aligned_blend"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,14 +10,16 @@ from a seed, and the per-tile work they give the kernels:
 - analytic: isotropic gaussians on a stretched sphere at 1024², C = 3,
   dup cap 8, chunk 128 (``analytic_scene``, ``analytic_view0``);
 - aligned view 0: the learned view 0's entries in the chunk-aligned
-  layout of the aligned all-tiles blend (``aligned_view0``).
+  layout of the aligned all-tiles blend (``aligned_view0``);
+- benchmark view 0: view 0 of a ``scripts/bench_matrix`` scene (the
+  headline, c1 / c3a / c4 / c5) as the serving blend gets it
+  (``bench_view0_stream``).
 
 ``chip_smoke.py`` and ``cli/profile_blend.py`` build their shapes here.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops import rasterize as R
@@ -103,16 +105,18 @@ def aligned_view0(sp: dict):
     return cstarts, scal, feat, num_tiles, grid_x, channels, config
 
 
-def train_view0(trainer, n_points: int, hw: int):
+def train_view0(trainer, n_points: int, hw: int, scale_factor: int = 448):
     """The training kernels' inputs at view 0 of the first example of the
-    ``train`` CLI's loader (seed 0), through ``trainer``'s network and
-    raster config: (stream, starts, order, num_tiles, grid_x, channels,
-    config, splats)."""
+    ``train`` CLI's loader (seed 0; the synthetic scenes quantized at
+    ``scale_factor``), through ``trainer``'s network and raster config:
+    (stream, starts, order, num_tiles, grid_x, channels, config,
+    splats)."""
     from ..train.data import DataLoader
 
     dev = trainer.device
     batch = DataLoader(batch_size=1, n_points=n_points, n_views=2, hw=hw,
-                       scale_factor=448, seed=0, device=dev).next_batch()
+                       scale_factor=scale_factor, seed=0,
+                       device=dev).next_batch()
     # tile_batch only sizes the plain versions' steps
     config = trainer.config._replace(downscale=1, tile_batch=256)
     with torch.no_grad():
@@ -134,36 +138,34 @@ def train_view0(trainer, n_points: int, hw: int):
                 int(means.shape[0]))
 
 
-def analytic_scene(n: int, device):
+def analytic_scene(n: int, device, res: int = 512):
     """``n`` isotropic gaussians (sigma 1 / 448, opacity 0.9, random RGB)
-    on a stretched sphere of the 448 grid, seen by the first of a
-    2-camera ring at 1024² (512² x2), dup cap 8, chunk 128:
+    on the stretched sphere of ``scripts/bench_matrix.make_cloud`` (448
+    grid, seed 0), seen by the first of a 2-camera ring at ``res``² x2
+    (the scene of ``scripts/bench_train_step.py``), dup cap 8, chunk 128:
     (leaves [means, scales, rotations, opacities, colours], settings,
     config)."""
-    rng = np.random.RandomState(0)
-    v = rng.randn(n, 3)
-    v /= np.linalg.norm(v, axis=1, keepdims=True)
-    v[:, 1] *= 1.6
-    v *= 0.55
+    from ..scripts.bench_matrix import make_cloud
+
     sf = 448
-    coords = ((v + rng.randn(n, 3) * 0.01) * sf + 512).astype(np.float32)
-    cam = RD.generate_cam({"fov": 45.0, "width_px": 512, "height_px": 512,
+    coords, rgb = make_cloud(n, sf)
+    cam = RD.generate_cam({"fov": 45.0, "width_px": res, "height_px": res,
                            "mode": "circle", "n_imgs": 2, "d": 0, "r": 3,
                            "center_angles": [90, 0]}, device=device)
     bg = torch.ones(3, device=device)
     rp = RD.get_rasterize_param_from_camera(cam, 45.0, bg=bg, sh_degree=0,
                                             super_sample_rate=2)
-    res = rp["height"]
+    size = rp["height"]
     config = R.RasterizeConfig(max_dup_per_gaussian=8, chunk_size=128,
                                differentiable=True)
     settings = R.GaussianRasterizationSettings(
-        res, res, rp["tanfov"], rp["tanfov"], bg, 1.0, rp["view_t"][0],
+        size, size, rp["tanfov"], rp["tanfov"], bg, 1.0, rp["view_t"][0],
         rp["full_t"][0], 0, rp["campos"][0])
     leaves = [RD.pcgc_rescale(torch.from_numpy(coords).to(device), 512, sf),
               torch.full((n, 3), 1.0 / sf, device=device),
               torch.tensor([1.0, 0, 0, 0], device=device).repeat(n, 1),
               torch.full((n,), 0.9, device=device),
-              torch.from_numpy(rng.rand(n, 3).astype(np.float32)).to(device)]
+              torch.from_numpy(rgb).to(device)]
     return leaves, settings, config
 
 
@@ -174,6 +176,37 @@ def analytic_view0(n: int, device):
         prep = R.preprocess(m, o, settings, config, scales=sc, rotations=q,
                             colors_precomp=f)
         return (*bin_view(prep, settings.image_height, config), 3, config)
+
+
+def bench_view0_stream(scene: dict, config: R.RasterizeConfig):
+    """The serving blend's inputs at view 0 of a benchmark scene
+    (``scripts/bench_matrix.make_scene``), built as ``render_views_fused``
+    builds them: fused features without normals, downscale 2 when the
+    output is half the raster size, the stream binning and
+    ``render_order``'s tiles. Returns (stream, starts, order, num_tiles,
+    grid_x, channels, config, overflow)."""
+    rp = scene["rp"]
+    H, W = rp["height"], rp["width"]
+    if H == 2 * scene["out_h"] and W == 2 * scene["out_w"]:
+        config = config._replace(downscale=2)
+    with torch.no_grad():
+        feats, bg = RD.fuse_view_features(
+            rp["campos"][0], scene["means"], scene["shs"], scene["normal"],
+            scene["bg3"], 1, False)
+        settings = R.GaussianRasterizationSettings(
+            H, W, rp["tanfov"], rp["tanfov"], bg, 1.0, rp["view_t"][0],
+            rp["full_t"][0], 1, rp["campos"][0])
+        prep = R.preprocess(scene["means"], scene["opacity"], settings, config,
+                            scales=scene["scales"],
+                            rotations=scene["rotations"],
+                            colors_precomp=feats, valid_mask=scene["valid"])
+        grid_x = -(-W // config.tile_x)
+        num_tiles = grid_x * -(-H // config.tile_y)
+        stream, starts, overflow = RS.bin_sorted_stream(prep, num_tiles,
+                                                        grid_x, config)
+        order, overflow = RS.render_order(starts, overflow, num_tiles, config)
+    return (stream, starts, order, num_tiles, grid_x, feats.shape[1], config,
+            int(overflow))
 
 
 def distribution(x: torch.Tensor) -> dict:

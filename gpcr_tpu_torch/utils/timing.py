@@ -52,3 +52,27 @@ def timed(fn: T.Callable, *args, warmup: int = 1, iters: int = 5, **kwargs):
         sync(out)
         times.append((time.perf_counter() - t0) * 1000.0)
     return float(np.median(times)), times, out
+
+
+def device_label(device) -> str:
+    """What a timing was taken on: for a CUDA device the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (a card set below its maximum
+    power runs slower under load), else the device's type."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    import subprocess
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"{torch.cuda.get_device_name(dev)}, power limit not read ({e})"
+    if smi.returncode != 0 or not smi.stdout.strip():
+        return (f"{torch.cuda.get_device_name(dev)}, power limit not read "
+                f"(nvidia-smi exit {smi.returncode})")
+    return smi.stdout.strip().splitlines()[0].strip()

@@ -2,8 +2,9 @@
 imports nothing of the JAX package.
 
 (a) every ``*.py`` under ``gpcr_tpu_torch/`` and ``chip_smoke.py`` is
-parsed with ``ast``; any import of ``jax``, ``flax``, ``optax`` or the
-bare ``gpcr_tpu`` package fails the test. (b) PLY and PNG files written by
+parsed with ``ast``; any import of ``jax``, ``flax``, ``optax``, the
+bare ``gpcr_tpu`` package or the repository's JAX ``scripts`` fails the
+test. (b) PLY and PNG files written by
 the port are read by ``gpcr_tpu.io`` and the other way round, with
 byte-equal arrays.
 """
@@ -19,7 +20,7 @@ from gpcr_tpu.io import ply as jply
 from gpcr_tpu_torch import io as tio
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "flax", "optax", "gpcr_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "gpcr_tpu", "scripts"}
 
 
 def _port_sources():
@@ -51,7 +52,10 @@ def test_port_imports_nothing_of_the_jax_package():
                  "utils/preprocess_obj.py", "cli/rescale_ply.py",
                  "cli/pipeline.py", "cli/sample_pcd.py",
                  "parallel/distributed.py", "parallel/sharding.py",
-                 "parallel/render.py", "parallel/dryrun.py"):
+                 "parallel/render.py", "parallel/dryrun.py", "bench.py",
+                 "scripts/__init__.py", "scripts/bench_matrix.py",
+                 "scripts/bench_pcrender.py", "scripts/bench_train_step.py",
+                 "scripts/train_demo.py"):
         assert os.path.join("gpcr_tpu_torch", name) in walked, name
     bad = [f"{os.path.relpath(p, REPO)}:{line} imports {root}"
            for p in files for root, line in _imported_roots(p)
