@@ -33,7 +33,14 @@ Phases, each printing what it found:
    as a JAX-layout .npz and loaded back), on a synthetic 800K-point cloud
    at scale factor 448, 12 circle views at 512² with x2 supersampling; the
    launch counter is reset just before it and must grow. Then a small
-   learned render on the card is held against the CPU path, and the
+   learned render on the card is held against the CPU path; the
+   end-to-end forward entry (``gpcr_tpu_torch/entry.py``, twin of
+   ``__graft_entry__.py::entry``: 256 points, ``9 16 16 16 16 16``, one
+   32² view) runs on the card with its launch counters at 0 (one serving
+   launch per call, a finite (12, 32, 32) image within 1e-4 of the CPU),
+   its warm calls timed, its host syncs counted by line and one call
+   traced, and ``python -m gpcr_tpu_torch.entry`` runs in a subprocess
+   pinned to this card (a one-rank dry run); then the
    kernel is timed against its plain version at this path's view-0 shape,
    beside that view's distributions over its tiles of the entries and of
    the entries walked (``[tile-work]``);
@@ -121,13 +128,14 @@ Phases, each printing what it found:
    demo's view 0 against their plain versions (max 1e-4 / mean 1e-6),
    timed beside their bounds;
 14. one JSON line describing the four kernels (kernel 1 also with its
-   launches in the ``--shard tiles`` run; each with its launches in the
-   bench phase and its times at the benchmarks' shapes), then the result
-   line.
+   launches in the ``--shard tiles`` run and in one entry call; each with
+   its launches in the bench phase and its times at the benchmarks'
+   shapes), then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
-result, when there is no CUDA device or any phase fails.
+result, when there is no CUDA device or any phase fails; a failed phase
+prints ``[fail] <phase> after <s> s: <error>`` first.
 """
 
 from __future__ import annotations
@@ -198,6 +206,10 @@ TRAIN_ARGS = ["--batch_size", "1", "--n_points", "200000", "--n_views", "2",
 # 100 steps hold the smoke's time, and the held-out PSNR rose by 2.75 dB
 # by step 50 of that run
 DEMO_STEPS, DEMO_RESUME = 100, 5
+# phase_entry: the end-to-end forward entry on the card against the CPU
+# (phase_learned_small's bar: the U-Net's float32 sums run in another
+# order), its warm calls timed, and the seconds its subprocess may take
+ENTRY_TOL, ENTRY_REPS, ENTRY_TIMEOUT = 1e-4, 20, 300
 KERNEL_NAMES = ("stream_blend", "stream_blend_contrib", "stream_blend_bwd",
                 "aligned_blend")
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
@@ -597,6 +609,121 @@ def phase_learned_small(torch):
     log(f"[learned-small] 48² x2 views, cuda vs cpu max|d|={worst:.3e}")
     check(worst <= 1e-4, f"learned render on the card disagrees: {worst}")
     return worst
+
+
+def _host_syncs(torch, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    count the host syncs it makes, by the innermost line of the port on
+    the Python stack where each was made."""
+    import collections
+    import traceback
+    import warnings
+
+    pkg = os.path.join(HERE, "gpcr_tpu_torch") + os.sep
+    waits = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # c10's warning on a sync; not the notice that the mode is a
+        # prototype, which setting it gives
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(pkg)]
+        where = ((os.path.relpath(ours[-1].filename, HERE), ours[-1].lineno)
+                 if ours else (filename, lineno))
+        waits["%s:%d" % where] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return waits
+
+
+def _entry_subprocess():
+    """``python -m gpcr_tpu_torch.entry`` with only this process's card
+    visible, so that its dry run is a world of one rank; its process group
+    is killed if it outlasts ENTRY_TIMEOUT. Returns (exit code, stdout,
+    stderr, seconds)."""
+    import signal
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=visible.strip() or "0")
+    t = time.time()
+    p = subprocess.Popen([sys.executable, "-m", "gpcr_tpu_torch.entry"],
+                         cwd=HERE, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=ENTRY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)  # with the dry run's ranks
+        out, err = p.communicate()
+        err += f"\n(killed after {ENTRY_TIMEOUT} s)"
+    return p.returncode, out, err, time.time() - t
+
+
+def phase_entry(torch, RS, RV, card):
+    """The end-to-end forward entry (``gpcr_tpu_torch/entry.py``, the twin
+    of ``__graft_entry__.py::entry``) on the card: a finite (12, 32, 32)
+    image from exactly one serving-kernel launch and no training kernel
+    per call, within ENTRY_TOL of ``entry(device="cpu")``; the warm wall
+    time per call (host clock after ``torch.cuda.synchronize()`` over
+    ENTRY_REPS calls); the host syncs of one call by the line that waits,
+    and the device's busy time and idle share of one traced call; then
+    ``python -m gpcr_tpu_torch.entry`` in a subprocess, which must exit 0.
+    Returns the serving launches of the one call driven with the counters
+    at 0."""
+    import statistics
+
+    from gpcr_tpu_torch import entry as E
+    from gpcr_tpu_torch.cli.profile_pcrender import _traced
+
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    fn, args = E.entry()
+    fn_c, args_c = E.entry(device="cpu")
+    with torch.no_grad():
+        out, got = _counted(RS, RV, counts, lambda: fn(*args))
+        torch.cuda.synchronize()
+        want = fn_c(*args_c)
+        check(tuple(out.shape) == (12, E.HW, E.HW),
+              f"entry image has shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "entry image is not finite")
+        check(got == (1, 0, 0), f"entry launched (serving, count forward, "
+              f"replay backward) = {got}, not one serving launch")
+        err = float((out.cpu() - want).abs().max())
+        check(err <= ENTRY_TOL, f"entry on the card disagrees with the "
+              f"CPU: max|d| {err}")
+        times = []
+        for _ in range(ENTRY_REPS):
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        waits = _host_syncs(torch, lambda: fn(*args))
+        trace = _traced("entry call", lambda: fn(*args), torch.device("cuda"),
+                        8)
+    log(f"[entry] (12, 32, 32) image, cuda vs cpu max|d|={err:.3e}, "
+        f"(serving, count, backward) launches of one call {got}; warm wall "
+        f"ms per call median {statistics.median(times):.4f}, min "
+        f"{min(times):.4f}, max {max(times):.4f} over {ENTRY_REPS} calls "
+        f"(host clock after synchronize; {card}); traced call "
+        f"{trace['wall_ms']:.4f} ms wall, {trace['device_busy_ms']:.4f} ms "
+        f"on the device, idle share {trace['idle_share']:.4f}")
+    log(f"[entry] host syncs in one call: {sum(waits.values())}; by the "
+        "port's line that waits: " + json.dumps(dict(waits.most_common())))
+    rc, sub_out, sub_err, sub_s = _entry_subprocess()
+    log(f"[entry] python -m gpcr_tpu_torch.entry (one visible card): exit "
+        f"{rc} in {sub_s:.1f} s; "
+        + " | ".join(sub_out.strip().splitlines()[-3:]))
+    check(rc == 0, "python -m gpcr_tpu_torch.entry failed:\n"
+          + sub_err[-3000:])
+    return got[0]
 
 
 def _learned_splats(torch, ckpt):
@@ -2403,8 +2530,13 @@ def main() -> int:
         def run(phase, *args):
             """One phase, with its seconds on the host clock."""
             t1 = time.time()
-            out = phase(*args)
-            torch.cuda.synchronize()
+            try:
+                out = phase(*args)
+                torch.cuda.synchronize()
+            except BaseException as e:
+                log(f"[fail] {phase.__name__} after {time.time() - t1:.1f} "
+                    f"s: {type(e).__name__}: {e}")
+                raise
             log(f"[time] {phase.__name__}: {time.time() - t1:.1f} s")
             return out
 
@@ -2415,6 +2547,7 @@ def main() -> int:
         run(phase_golden, torch, B)
         launches, timing, peak, ckpt = run(phase_learned, torch, B, RS)
         run(phase_learned_small, torch)
+        entry_launches = run(phase_entry, torch, RS, RV, card)
         splats = _learned_splats(torch, ckpt)
         serve, pairs, entries, work = run(phase_timing, torch, splats)
         aligned_launches = run(phase_aligned_route, torch, B, RA, splats)
@@ -2452,6 +2585,7 @@ def main() -> int:
         f"{BWD_L2_REL:g} * ||plain||_2 + {BWD_ABS:g})")
     # no single PyTorch call computes any of the four (a sorted,
     # early-terminating alpha blend and its replay), so library_ms is null
+    # entry_launches: kernel 1's launches in one call of the entry's fn;
     # bench_launches: each kernel's launches in phase_bench's entry points;
     # bench_shapes: the kernel at the benchmarks' shapes (kernel 1 at view 0
     # of the headline and c1 / c4 / c5; kernels 2-3 at bench_train_step's
@@ -2462,6 +2596,7 @@ def main() -> int:
          "source": "gpcr_tpu_torch/csrc/stream_blend.cu",
          "replaces": TPU_KERNEL, "launches": launches, **serve,
          "library_ms": None, "windowed_launches": windowed_launches,
+         "entry_launches": entry_launches,
          "bench_launches": bench["stream_blend"],
          "bench_shapes": serve_shapes},
         {"name": "stream_blend_contrib", "route": "cuda",

@@ -260,8 +260,9 @@ def check_replicate(n: int, device) -> None:
 
 
 def check_overflow(n: int, device) -> int:
-    """Under a k_budget that cuts the windows differently, the tile-sharded
-    overflow is the MAX over the windows; returns it."""
+    """Under a k_budget that cuts the windows differently (with more than
+    one rank), the tile-sharded overflow is the MAX over the windows;
+    returns it."""
     from ..ops import rasterize as R
     from ..ops import rasterize_stream as RS
     from .render import rasterize_tile_sharded, window_of
@@ -285,7 +286,9 @@ def check_overflow(n: int, device) -> int:
     each = [int(RS.blend_stream(prep, None, grid * grid, grid, config, 6,
                                 *window_of(grid * grid, n, d))[2])
             for d in range(n)]
-    _check(len(set(each)) > 1, f"the windows' overflows are all {each}")
+    # one rank's window is the whole grid: nothing to tell apart
+    _check(n == 1 or len(set(each)) > 1,
+           f"the windows' overflows are all {each}")
     _check(int(ovf) == max(each), f"overflow {int(ovf)}, windows {each}")
     return int(ovf)
 

@@ -1,7 +1,8 @@
 """BASELINE.md's analytic benchmark matrix on the port (twin of
 ``scripts/bench_matrix.py``), all configs in one run:
 
-  c1  simple render, quantized ~290K cloud (sf 256), 512² x2ss, 12-view circle
+  c1  simple render, 800K cloud quantized at sf 256 (708,565 points kept),
+      512² x2ss, 12-view circle
   c3a simple render, 800K cloud (sf 448), 1024² x2ss (the headline config)
   c4  1.5M-point cloud, multi-view orbit, 512² x2ss
   c5  30-frame animated sequence at 1080p (1920x1080) x2ss, 800K cloud

@@ -4,7 +4,8 @@ forward and the aligned all-tiles blend (both walking a chunk ring), the
 replay backward (tiles split into segments); and the data path's torch
 ops on the card against the CPU (voxel downsampling, outlier removal,
 RGBD unprojection, segment max / min, the surfel z-buffer, the k nearest
-points to rays, sparse trilinear interpolation and pruning).
+points to rays, sparse trilinear interpolation and pruning); and the
+end-to-end forward entry (``gpcr_tpu_torch/entry.py``) against the CPU.
 
 Each test skips without a CUDA device; the decision is taken inside the
 ``cuda`` fixture, never at import. The file imports no JAX, so it also
@@ -721,3 +722,26 @@ def test_interpolate_trilinear_and_prune_on_the_card_match_cpu(cuda):
         keep.to(cuda))
     assert torch.equal(p_gpu.codes.cpu(), p_cpu.codes)
     assert torch.equal(p_gpu.feats.cpu(), p_cpu.feats)
+
+
+@pytest.mark.gpu
+def test_entry_on_the_card_matches_cpu(cuda):
+    """``gpcr_tpu_torch.entry``'s forward on the card against
+    ``entry(device="cpu")`` (the same seeded weights and scene) at 1e-4,
+    with one serving-kernel launch per call and no training kernel."""
+    from gpcr_tpu_torch import entry as TE
+
+    fn, args = TE.entry()
+    assert all(t.device.type == "cuda" for t in args[1:])
+    fn_c, args_c = TE.entry(device="cpu")
+    with torch.no_grad():
+        want = fn_c(*args_c)
+        for _ in range(2):
+            TRS.LAUNCHES = TRS.LAUNCHES_CONTRIB = TV.LAUNCHES_BWD = 0
+            got = fn(*args)
+            torch.cuda.synchronize()
+            assert (TRS.LAUNCHES, TRS.LAUNCHES_CONTRIB,
+                    TV.LAUNCHES_BWD) == (1, 0, 0)
+    assert tuple(got.shape) == (12, TE.HW, TE.HW)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4

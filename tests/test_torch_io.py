@@ -55,7 +55,7 @@ def test_port_imports_nothing_of_the_jax_package():
                  "parallel/render.py", "parallel/dryrun.py", "bench.py",
                  "scripts/__init__.py", "scripts/bench_matrix.py",
                  "scripts/bench_pcrender.py", "scripts/bench_train_step.py",
-                 "scripts/train_demo.py"):
+                 "scripts/train_demo.py", "entry.py"):
         assert os.path.join("gpcr_tpu_torch", name) in walked, name
     bad = [f"{os.path.relpath(p, REPO)}:{line} imports {root}"
            for p in files for root, line in _imported_roots(p)

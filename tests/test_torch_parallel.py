@@ -310,16 +310,20 @@ def test_shard_batch_and_single_process_rules(monkeypatch):
         sharding.make_mesh(n_devices=4)
 
 
-def test_dryrun_four_gloo_ranks():
-    """One spawned world of 4 CPU processes: a dp 2 x sp 2 training step
-    against one process on the whole batch (1e-5), views (3 over 4 ranks,
-    padded) and tiles against render_views_fused (2e-5), replicate, and
-    the tile-sharded overflow as the MAX of the windows'. By default it
-    asks for one card per rank and refuses to start without them."""
-    if torch.cuda.device_count() < 4:
-        with pytest.raises(RuntimeError, match="needs 4 cards"):
-            dryrun.dryrun_multichip(4)
-    dryrun.dryrun_multichip(4, timeout=300, device="cpu")
+@pytest.mark.parametrize("n", [1, 4])
+def test_dryrun_four_gloo_ranks(n):
+    """One spawned world of n CPU processes: a dp x sp training step
+    against one process on the whole batch (1e-5), views (3 over the
+    ranks, padded) and tiles against render_views_fused (2e-5), replicate,
+    and the tile-sharded overflow as the MAX of the windows' (4 windows
+    that overflow differently; one window, the whole grid, for the
+    one-rank world that ``python -m gpcr_tpu_torch.entry`` starts on one
+    card). By default it asks for one card per rank and refuses to start
+    without them."""
+    if torch.cuda.device_count() < n:
+        with pytest.raises(RuntimeError, match=f"needs {n} cards"):
+            dryrun.dryrun_multichip(n)
+    dryrun.dryrun_multichip(n, timeout=300, device="cpu")
 
 
 @pytest.mark.parametrize("shard", ["views", "tiles"])
