@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..ops import sparse
+from ..utils import trace
 from ..utils.sh import RGB2SH
 from .unet import SparseUNet
 
@@ -110,67 +111,70 @@ class PCEncoder(nn.Module):
     def forward(self, grid: sparse.SparseGrid, plan: dict) -> SplatParams:
         """``grid.feats``' LAST 3 channels are the input rgb."""
         info = self.info
-        feat = self.color_encoder(grid, plan)  # (N, F)
-        rgb_in = grid.feats[:, -3:]
-        n = feat.shape[0]
-        dev = feat.device
-        ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
-        used = 0
+        with trace.span("gpcr.encode.unet"):
+            feat = self.color_encoder(grid, plan)  # (N, F)
+        with trace.span("gpcr.encode.head"):
+            rgb_in = grid.feats[:, -3:]
+            n = feat.shape[0]
+            dev = feat.device
+            ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+            used = 0
 
-        if info.use_rotation:
-            rot = feat[:, 0:4] + ident
-            used += 4
-        else:
-            rot = ident.expand(n, 4).clone()
-        if info.use_scale:
-            scale = torch.clamp(feat[:, used:used + 3] + 1.0, min=0.0)
-            used += 3
-        else:
-            scale = torch.ones((n, 3), device=dev)
-        if info.use_opacity:
-            opacity = torch.clamp(feat[:, used:used + 1], 0.0, 1.0)
-            used += 1
-        else:
-            opacity = torch.ones((n, 1), device=dev)
-        if info.use_offset:
-            offsets = feat[:, used:used + 3]
-            used += 3
-        else:
-            offsets = None
-        if info.use_dc_offset:
-            sh_dc = (feat[:, used:used + 3] + RGB2SH(rgb_in))[:, None, :]
-            used += 3
-        else:
-            sh_dc = RGB2SH(rgb_in)[:, None, :]
-        if info.est_normal:
-            normal = feat[:, used:used + 3]
-            used += 3
-            if info.normalize_normal:
-                norm2 = torch.sum(normal ** 2, dim=-1, keepdim=True)
-                safe = torch.sqrt(torch.where(norm2 > 0, norm2,
-                                              torch.ones_like(norm2)))
-                normal = torch.where(norm2 > 0, normal / safe,
-                                     torch.zeros_like(normal))
-        else:
-            normal = None
+            if info.use_rotation:
+                rot = feat[:, 0:4] + ident
+                used += 4
+            else:
+                rot = ident.expand(n, 4).clone()
+            if info.use_scale:
+                scale = torch.clamp(feat[:, used:used + 3] + 1.0, min=0.0)
+                used += 3
+            else:
+                scale = torch.ones((n, 3), device=dev)
+            if info.use_opacity:
+                opacity = torch.clamp(feat[:, used:used + 1], 0.0, 1.0)
+                used += 1
+            else:
+                opacity = torch.ones((n, 1), device=dev)
+            if info.use_offset:
+                offsets = feat[:, used:used + 3]
+                used += 3
+            else:
+                offsets = None
+            if info.use_dc_offset:
+                sh_dc = (feat[:, used:used + 3] + RGB2SH(rgb_in))[:, None, :]
+                used += 3
+            else:
+                sh_dc = RGB2SH(rgb_in)[:, None, :]
+            if info.est_normal:
+                normal = feat[:, used:used + 3]
+                used += 3
+                if info.normalize_normal:
+                    norm2 = torch.sum(normal ** 2, dim=-1, keepdim=True)
+                    safe = torch.sqrt(torch.where(norm2 > 0, norm2,
+                                                  torch.ones_like(norm2)))
+                    normal = torch.where(norm2 > 0, normal / safe,
+                                         torch.zeros_like(normal))
+            else:
+                normal = None
 
-        if info.sh_deg > 0 and info.sh_feat_deg > 0:
-            sh = torch.cat([sh_dc, feat[:, used:].reshape(n, -1, 3)], dim=1)
-        elif info.sh_deg > 0:
-            pseudo = (2 ** (info.sh_deg + 1)) * 3
-            sh = torch.cat([sh_dc, torch.zeros((n, pseudo, 3), device=dev)],
-                           dim=1)
-        else:
-            sh = sh_dc
+            if info.sh_deg > 0 and info.sh_feat_deg > 0:
+                sh = torch.cat([sh_dc, feat[:, used:].reshape(n, -1, 3)],
+                               dim=1)
+            elif info.sh_deg > 0:
+                pseudo = (2 ** (info.sh_deg + 1)) * 3
+                sh = torch.cat(
+                    [sh_dc, torch.zeros((n, pseudo, 3), device=dev)], dim=1)
+            else:
+                sh = sh_dc
 
-        center = grid.coords().to(torch.float32) * grid.stride
-        primitives = center + offsets if info.use_offset else center
-        return SplatParams(
-            primitives=primitives, sh=sh, rotation=rot, scale=scale,
-            opacity=opacity, center_points=center, offsets=offsets,
-            normal=normal,
-            valid=torch.ones((n,), dtype=torch.bool, device=dev),
-        )
+            center = grid.coords().to(torch.float32) * grid.stride
+            primitives = center + offsets if info.use_offset else center
+            return SplatParams(
+                primitives=primitives, sh=sh, rotation=rot, scale=scale,
+                opacity=opacity, center_points=center, offsets=offsets,
+                normal=normal,
+                valid=torch.ones((n,), dtype=torch.bool, device=dev),
+            )
 
 
 def assemble_input_features(info: PCMLInfo, xyz_grid: torch.Tensor,

@@ -18,6 +18,8 @@ import os
 import shutil
 import subprocess
 
+from ..utils import trace
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
@@ -74,7 +76,9 @@ def load(name: str, csrc_dir: str = CSRC_DIR, defines=()) -> ctypes.CDLL:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [find_nvcc(), *flags, "-o", tmp, src]
-        r = subprocess.run(cmd, capture_output=True, text=True)
+        with trace.span("gpcr.kernel.build"):
+            r = subprocess.run(cmd, capture_output=True, text=True)
+        trace.count("kernel_builds", 1)
         if r.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({r.returncode}) building {src}:\n"
@@ -86,7 +90,8 @@ def load(name: str, csrc_dir: str = CSRC_DIR, defines=()) -> ctypes.CDLL:
             out + ".log"):
         with open(out + ".log") as f:
             BUILD_LOGS[name] = f.read().strip()
-    lib = ctypes.CDLL(out)
+    with trace.span("gpcr.kernel.load"):
+        lib = ctypes.CDLL(out)
     _LIBS[key] = lib
     return lib
 

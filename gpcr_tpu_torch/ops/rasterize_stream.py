@@ -36,6 +36,7 @@ import typing as T
 
 import torch
 
+from ..utils import trace
 from . import cuda_build
 from . import rasterize as R
 
@@ -482,11 +483,16 @@ def blend_stream(
     ``render_order``, so ``max_active_tiles`` is a budget per window."""
     count = num_tiles if tile_count is None else tile_count
     window = None if tile_count is None else (tile_base, tile_count)
-    stream, starts, overflow = bin_sorted_stream(prep, num_tiles, grid_x,
-                                                 config, tile_window=window)
-    order, overflow = render_order(starts, overflow, count, config)
-    acc, t_run = blend_tiles(stream, starts, order, count, grid_x, channels,
-                             config, tile_base=tile_base)
+    with trace.span("gpcr.raster.bin"):
+        stream, starts, overflow = bin_sorted_stream(
+            prep, num_tiles, grid_x, config, tile_window=window)
+    trace.count("entries", stream.shape[0])
+    with trace.span("gpcr.raster.order"):
+        order, overflow = render_order(starts, overflow, count, config)
+    trace.count("tiles_rendered", order.shape[0])
+    with trace.span("gpcr.raster.blend"):
+        acc, t_run = blend_tiles(stream, starts, order, count, grid_x,
+                                 channels, config, tile_base=tile_base)
     if bg is None:
         return acc, t_run, overflow
     out = acc + t_run[..., None] * bg.to(acc.dtype)[None, None, :]
@@ -534,20 +540,22 @@ def rasterize_gaussians_stream(
                    or config.tile_y % ds):
         raise ValueError("downscale requires even H/W/tile dims")
 
-    prep = R.preprocess(
-        means3d, opacities, settings, config,
-        scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
-        shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
-    )
+    with trace.span("gpcr.raster.preprocess"):
+        prep = R.preprocess(
+            means3d, opacities, settings, config,
+            scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
+            shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
+        )
     channels = prep.features.shape[-1]
     out, t_run, overflow = blend_stream(
         prep, settings.bg, num_tiles, grid_x, config, channels)
-    if ds > 1:
-        acfg = config._replace(tile_x=config.tile_x // ds,
-                               tile_y=config.tile_y // ds)
-        color, t_img = assemble_tiles(out, t_run, H // ds, W // ds, acfg)
-    else:
-        color, t_img = assemble_tiles(out, t_run, H, W, config)
+    with trace.span("gpcr.raster.epilogue"):
+        if ds > 1:
+            acfg = config._replace(tile_x=config.tile_x // ds,
+                                   tile_y=config.tile_y // ds)
+            color, t_img = assemble_tiles(out, t_run, H // ds, W // ds, acfg)
+        else:
+            color, t_img = assemble_tiles(out, t_run, H, W, config)
     R.check_debug(settings, prep, color)
     radii = prep.radius.to(torch.int32)
     if return_extra:

@@ -31,6 +31,7 @@ from ..structures.camera import Camera
 from ..structures.pointcloud import PointCloud
 from ..structures.trajectory import CameraTrajectory
 from ..utils import sh as sh_utils
+from ..utils import trace
 from ..utils.timing import sync
 
 
@@ -181,8 +182,9 @@ def _render_one_view(
     ``ops/rasterize_aligned.py``: forward only, always at (height, width),
     and its dropped entries are not counted. Returns (color (C, h, w),
     dup_overflow)."""
-    features, bg = fuse_view_features(
-        campos, means3d, shs, normal, bg3, sh_degree, with_normal)
+    with trace.span("gpcr.raster.features"):
+        features, bg = fuse_view_features(
+            campos, means3d, shs, normal, bg3, sh_degree, with_normal)
     settings = R.GaussianRasterizationSettings(
         image_height=height, image_width=width, tanfovx=tanfov,
         tanfovy=tanfov, bg=bg, scale_modifier=1.0, viewmatrix=view_t,
@@ -223,24 +225,25 @@ def render_views_fused(
         config = config._replace(downscale=2)
     colors, overflow = [], []
     for vt, ft, cp in zip(view_ts, full_ts, camposes):
-        color, ovf = _render_one_view(
-            vt, ft, cp, means3d, scales, rotations, opacity, shs, normal,
-            valid, bg3, tanfov, height, width, sh_degree, config, with_normal,
-            use_pallas)
+        with trace.span("gpcr.raster.view"):
+            color, ovf = _render_one_view(
+                vt, ft, cp, means3d, scales, rotations, opacity, shs, normal,
+                valid, bg3, tanfov, height, width, sh_degree, config,
+                with_normal, use_pallas)
         colors.append(color)
         overflow.append(ovf)
-    colors = bilinear_resize(torch.stack(colors), out_h, out_w)
-    out = {
-        "rgb": colors[:, 0:3].permute(0, 2, 3, 1),
-        "xyz_w": colors[:, 3:6].permute(0, 2, 3, 1),
-        "hitmap": colors[:, 6:9].permute(0, 2, 3, 1),
-        "normal": (colors[:, 9:12].permute(0, 2, 3, 1) if with_normal
-                   else None),
-        # dropped splat-tile entries per view (dup cap / k_budget /
-        # max_active_tiles); callers warn after the timed region
-        "dup_overflow": torch.stack(overflow),
-    }
-    return out
+    with trace.span("gpcr.raster.resize"):
+        colors = bilinear_resize(torch.stack(colors), out_h, out_w)
+        return {
+            "rgb": colors[:, 0:3].permute(0, 2, 3, 1),
+            "xyz_w": colors[:, 3:6].permute(0, 2, 3, 1),
+            "hitmap": colors[:, 6:9].permute(0, 2, 3, 1),
+            "normal": (colors[:, 9:12].permute(0, 2, 3, 1) if with_normal
+                       else None),
+            # dropped splat-tile entries per view (dup cap / k_budget /
+            # max_active_tiles); callers warn after the timed region
+            "dup_overflow": torch.stack(overflow),
+        }
 
 
 def apply_point_light(ret: dict, point_light: dict) -> torch.Tensor:
@@ -287,6 +290,7 @@ def _finish(out: dict, point_light, model_time, rgb_time,
         print("model time: %.3f sec, rgb time: %.3f sec"
               % (model_time, rgb_time), flush=True)
     ovf = int(out.pop("dup_overflow").sum())
+    trace.count("entries_dropped", ovf)
     if timing is not None:
         timing.update(model_time=model_time, rgb_time=rgb_time,
                       dup_overflow=ovf)
@@ -380,54 +384,61 @@ class SimpleRender:
                 )
                 for ib in range(pcd.batch_size)
             ])
-        dev = pcd.device
-        in_off = torch.zeros((1, 3), device=dev) if input_offset is None else (
-            torch.as_tensor(np.asarray(input_offset, np.float32),
-                            device=dev).reshape(1, 3))
-        xyz = pcd.xyz_w[0] + in_off
-        rgb = pcd.rgb[0]
-        valid = pcd.get_valid_mask()[0, :, 0]
-        n = xyz.shape[0]
+        with trace.request(pcd.device):
+            dev = pcd.device
+            if input_offset is None:
+                in_off = torch.zeros((1, 3), device=dev)
+            else:
+                in_off = torch.as_tensor(np.asarray(input_offset, np.float32),
+                                         device=dev).reshape(1, 3)
+            xyz = pcd.xyz_w[0] + in_off
+            rgb = pcd.rgb[0]
+            valid = pcd.get_valid_mask()[0, :, 0]
+            n = xyz.shape[0]
 
-        t0 = time.time()
-        sh_deg = 1
-        scale_norm = self.scale_factor if self.voxelized else 1.0
-        pseudo = (2 ** (sh_deg + 1)) * 3  # 12 zero AC rows
-        shs = torch.cat([sh_utils.RGB2SH(rgb)[:, None, :],
-                         torch.zeros((n, pseudo, 3), device=dev)], dim=1)
-        means = (pcgc_rescale(xyz, self.offset, self.scale_factor)
-                 if self.voxelized else xyz)
-        rotations = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(n, 4)
-        scales = torch.ones((n, 3), device=dev) * (sigma / scale_norm)
-        opacity = torch.ones((n,), device=dev)
-        sync(opacity)
-        model_time = time.time() - t0
+            t0 = time.perf_counter()
+            with trace.span("gpcr.splats"):
+                sh_deg = 1
+                scale_norm = self.scale_factor if self.voxelized else 1.0
+                pseudo = (2 ** (sh_deg + 1)) * 3  # 12 zero AC rows
+                shs = torch.cat([sh_utils.RGB2SH(rgb)[:, None, :],
+                                 torch.zeros((n, pseudo, 3), device=dev)],
+                                dim=1)
+                means = (pcgc_rescale(xyz, self.offset, self.scale_factor)
+                         if self.voxelized else xyz)
+                rotations = torch.tensor([1.0, 0.0, 0.0, 0.0],
+                                         device=dev).expand(n, 4)
+                scales = torch.ones((n, 3), device=dev) * (sigma / scale_norm)
+                opacity = torch.ones((n,), device=dev)
+                sync(opacity)
+            model_time = time.perf_counter() - t0
 
-        bg3 = torch.zeros((3,), device=dev) + torch.as_tensor(
-            np.asarray(background_color, np.float32), device=dev)
-        rp = get_rasterize_param_from_camera(
-            cam, fov, bg=bg3, sh_degree=sh_deg,
-            super_sample_rate=super_sample_rate)
-        config = _exact_budget(self.config)
-        fused = _views_runner(self)
+            bg3 = torch.zeros((3,), device=dev) + torch.as_tensor(
+                np.asarray(background_color, np.float32), device=dev)
+            rp = get_rasterize_param_from_camera(
+                cam, fov, bg=bg3, sh_degree=sh_deg,
+                super_sample_rate=super_sample_rate)
+            config = _exact_budget(self.config)
+            fused = _views_runner(self)
 
-        def run():
-            return fused(
-                rp["view_t"], rp["full_t"], rp["campos"],
-                means, scales, rotations, opacity, shs,
-                torch.zeros_like(means), valid, bg3, rp["tanfov"],
-                height=rp["height"], width=rp["width"],
-                out_h=cam.height_px, out_w=cam.width_px,
-                sh_degree=sh_deg, config=config, with_normal=False,
-            )
+            def run():
+                return fused(
+                    rp["view_t"], rp["full_t"], rp["campos"],
+                    means, scales, rotations, opacity, shs,
+                    torch.zeros_like(means), valid, bg3, rp["tanfov"],
+                    height=rp["height"], width=rp["width"],
+                    out_h=cam.height_px, out_w=cam.width_px,
+                    sh_degree=sh_deg, config=config, with_normal=False,
+                )
 
-        if self.warm_timing:
-            sync(run())
-        t0 = time.time()
-        out = run()
-        sync(out)
-        rgb_time = time.time() - t0
-        return _finish(out, point_light, model_time, rgb_time, timing)
+            if self.warm_timing:
+                sync(run())
+            t0 = time.perf_counter()
+            out = run()
+            sync(out)
+            rgb_time = time.perf_counter() - t0
+            with trace.span("gpcr.finish"):
+                return _finish(out, point_light, model_time, rgb_time, timing)
 
 
 # --------------------------------------------------------------------------
@@ -482,62 +493,72 @@ class PCMLRender:
         generator: T.Optional[torch.Generator] = None,
         shard: T.Optional[str] = None, shard_mesh=None,
     ):
-        if ckpt is not None:
-            params, info = load_pcml(ckpt)
-        elif info is None:
-            raise ValueError("PCMLRender needs a ckpt or an info dict")
-        self.info = info if isinstance(info, PCMLInfo) else PCMLInfo.from_dict(info)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        model = PCEncoder(self.info, generator=generator)
-        if params is not None:
-            from .checkpoint import load_jax_params
+        with trace.span("gpcr.init"):
+            if ckpt is not None:
+                params, info = load_pcml(ckpt)
+            elif info is None:
+                raise ValueError("PCMLRender needs a ckpt or an info dict")
+            self.info = (info if isinstance(info, PCMLInfo)
+                         else PCMLInfo.from_dict(info))
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            model = PCEncoder(self.info, generator=generator)
+            if params is not None:
+                from .checkpoint import load_jax_params
 
-            load_jax_params(model, params)
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        self.voxelized = voxelized
-        self.scale_factor = (
-            self.info.scale_factor if scale_factor is None else scale_factor)
-        self.offset = offset
-        self.config = config
-        self.warm_timing = warm_timing
-        self.shard = shard
-        self.shard_mesh = shard_mesh
-        self._shard_runner = None
-        # geometry cache: MinkowskiEngine's coordinate manager keeps kernel
-        # maps per sparse tensor, so the reference's timed pass after warmup
-        # re-runs only the network; one cloud's plan is kept, keyed on the
-        # input offset and checked against the cloud by identity
-        self._geom_cache: dict = {}
+                load_jax_params(model, params)
+            self.device = torch.device(device)
+            self.model = model.to(self.device).eval()
+            self.voxelized = voxelized
+            self.scale_factor = (self.info.scale_factor
+                                 if scale_factor is None else scale_factor)
+            self.offset = offset
+            self.config = config
+            self.warm_timing = warm_timing
+            self.shard = shard
+            self.shard_mesh = shard_mesh
+            self._shard_runner = None
+            # geometry cache: MinkowskiEngine's coordinate manager keeps
+            # kernel maps per sparse tensor, so the reference's timed pass
+            # after warmup re-runs only the network; one cloud's plan is
+            # kept, keyed on the input offset and checked against the cloud
+            # by identity
+            self._geom_cache: dict = {}
 
     @torch.no_grad()
     def encode(self, pcd: PointCloud, input_offset=None):
         """Quantize + run the network. Returns (SplatParams in grid units,
         grid, plan)."""
         pin_fp32()
-        dev = pcd.device
-        off_np = (np.zeros(3, np.float32) if input_offset is None
-                  else np.asarray(input_offset, np.float32).reshape(3))
-        in_off = torch.as_tensor(off_np, device=dev).reshape(1, 3)
-        xyz = pcd.xyz_w[0]
-        if self.voxelized:
-            coords = xyz + in_off
-        else:
-            coords = xyz * self.scale_factor + self.offset + in_off
-        rgb = pcd.rgb[0]
-        valid = pcd.get_valid_mask()[0, :, 0]
-        feats = assemble_input_features(self.info, coords, rgb, self.offset)
-        grid = sparse.quantize_average(coords, feats, valid=valid)
+        with trace.span("gpcr.encode"):
+            dev = pcd.device
+            off_np = (np.zeros(3, np.float32) if input_offset is None
+                      else np.asarray(input_offset, np.float32).reshape(3))
+            with trace.span("gpcr.encode.quantize"):
+                in_off = torch.as_tensor(off_np, device=dev).reshape(1, 3)
+                xyz = pcd.xyz_w[0]
+                if self.voxelized:
+                    coords = xyz + in_off
+                else:
+                    coords = xyz * self.scale_factor + self.offset + in_off
+                rgb = pcd.rgb[0]
+                valid = pcd.get_valid_mask()[0, :, 0]
+                feats = assemble_input_features(self.info, coords, rgb,
+                                                self.offset)
+                grid = sparse.quantize_average(coords, feats, valid=valid)
+            trace.count("voxels", grid.num)
 
-        geom_key = tuple(np.round(off_np, 6))
-        cached = self._geom_cache.get(geom_key)
-        if cached is not None and cached[0] is pcd:
-            plan = cached[1]
-        else:
-            plan = self.model.build_plan(grid)
-            self._geom_cache = {geom_key: (pcd, plan)}
-        return self.model(grid, plan), grid, plan
+            with trace.span("gpcr.encode.plan"):
+                geom_key = tuple(np.round(off_np, 6))
+                cached = self._geom_cache.get(geom_key)
+                if cached is not None and cached[0] is pcd:
+                    plan = cached[1]
+                    trace.count("plan_hits", 1)
+                else:
+                    plan = self.model.build_plan(grid)
+                    self._geom_cache = {geom_key: (pcd, plan)}
+                    trace.count("plan_builds", 1)
+            return self.model(grid, plan), grid, plan
 
     @torch.no_grad()
     def render(
@@ -563,53 +584,57 @@ class PCMLRender:
                 for ib in range(pcd.batch_size)
             ])
 
-        # warmup then timed network pass (simple_raw_render.py:372-379)
-        sp, _, _ = self.encode(pcd, input_offset)
-        sync(sp.primitives)
-        t0 = time.time()
-        sp, _, _ = self.encode(pcd, input_offset)
-        sync(sp.primitives)
-        model_time = time.time() - t0
+        with trace.request(pcd.device):
+            # warmup then timed network pass (simple_raw_render.py:372-379)
+            sp, _, _ = self.encode(pcd, input_offset)
+            sync(sp.primitives)
+            t0 = time.perf_counter()
+            sp, _, _ = self.encode(pcd, input_offset)
+            sync(sp.primitives)
+            model_time = time.perf_counter() - t0
 
-        dev = sp.primitives.device
-        means = pcgc_rescale(sp.primitives, self.offset, self.scale_factor)
-        radius = float(np.sqrt(3) / self.scale_factor * 6)
-        scales = sp.scale * radius
-        opacity = (sp.opacity[:, 0]
-                   if (enable_opacity and self.info.enable_opacity)
-                   else torch.ones_like(sp.opacity[:, 0]))
-        if est_normal_from_ellipsoid:
-            normal = globals()["est_normal_from_ellipsoid"](sp.scale,
-                                                            sp.rotation)
-        else:
-            normal = sp.normal
-        with_normal = normal is not None
-        if normal is None:
-            normal = torch.zeros_like(means)
+            dev = sp.primitives.device
+            with trace.span("gpcr.splats"):
+                means = pcgc_rescale(sp.primitives, self.offset,
+                                     self.scale_factor)
+                radius = float(np.sqrt(3) / self.scale_factor * 6)
+                scales = sp.scale * radius
+                opacity = (sp.opacity[:, 0]
+                           if (enable_opacity and self.info.enable_opacity)
+                           else torch.ones_like(sp.opacity[:, 0]))
+                if est_normal_from_ellipsoid:
+                    normal = globals()["est_normal_from_ellipsoid"](
+                        sp.scale, sp.rotation)
+                else:
+                    normal = sp.normal
+                with_normal = normal is not None
+                if normal is None:
+                    normal = torch.zeros_like(means)
 
-        bg3 = torch.zeros((3,), device=dev) + torch.as_tensor(
-            np.asarray(background_color, np.float32), device=dev)
-        rp = get_rasterize_param_from_camera(
-            cam, fov, bg=bg3, sh_degree=self.info.sh_deg,
-            super_sample_rate=super_sample_rate)
-        config = _exact_budget(self.config)
-        fused = _views_runner(self)
+            bg3 = torch.zeros((3,), device=dev) + torch.as_tensor(
+                np.asarray(background_color, np.float32), device=dev)
+            rp = get_rasterize_param_from_camera(
+                cam, fov, bg=bg3, sh_degree=self.info.sh_deg,
+                super_sample_rate=super_sample_rate)
+            config = _exact_budget(self.config)
+            fused = _views_runner(self)
 
-        def run():
-            return fused(
-                rp["view_t"], rp["full_t"], rp["campos"],
-                means, scales, sp.rotation, opacity, sp.sh, normal,
-                sp.valid, bg3, rp["tanfov"],
-                height=rp["height"], width=rp["width"],
-                out_h=cam.height_px, out_w=cam.width_px,
-                sh_degree=self.info.sh_deg, config=config,
-                with_normal=with_normal,
-            )
+            def run():
+                return fused(
+                    rp["view_t"], rp["full_t"], rp["campos"],
+                    means, scales, sp.rotation, opacity, sp.sh, normal,
+                    sp.valid, bg3, rp["tanfov"],
+                    height=rp["height"], width=rp["width"],
+                    out_h=cam.height_px, out_w=cam.width_px,
+                    sh_degree=self.info.sh_deg, config=config,
+                    with_normal=with_normal,
+                )
 
-        if self.warm_timing:
-            sync(run())
-        t0 = time.time()
-        out = run()
-        sync(out)
-        rgb_time = time.time() - t0
-        return _finish(out, point_light, model_time, rgb_time, timing)
+            if self.warm_timing:
+                sync(run())
+            t0 = time.perf_counter()
+            out = run()
+            sync(out)
+            rgb_time = time.perf_counter() - t0
+            with trace.span("gpcr.finish"):
+                return _finish(out, point_light, model_time, rgb_time, timing)

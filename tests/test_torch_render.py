@@ -187,20 +187,24 @@ def test_cli_runs_without_jax(tmp_path):
 
 
 def test_profile_script_follows_the_renderer():
-    """The stage profile renders what PCMLRender renders (same weights,
-    cloud, cameras and raster config), so its stage times are the
-    renderer's path cut at stage boundaries."""
+    """The span profile renders what PCMLRender renders (same weights,
+    cloud, cameras and raster config) by calling it, and reads its times
+    from the renderer's own spans."""
     from gpcr_tpu_torch.cli import profile_pcrender as P
 
     argv = ["--n_points", "1000", "--channels", "9 8 8 8 8 8", "--views",
             "1", "--res", "32", "--reps", "1", "--top", "3",
             "--device", "cpu"]
-    stages, lines, images = P.main(argv)
-    assert set(stages) == {
-        "encode.quantize", "encode.build_plan", "encode.unet+head",
-        "view.features+preprocess", "view.binning", "view.order",
-        "view.blend_kernel", "view.epilogue"}
-    assert [d["pass"] for d in lines] == ["encode", "rgb"]
+    init, rec, table, out = P.main(argv)
+    assert [s.name for s in init.spans] == ["gpcr.init"]
+    assert set(table["spans"]) == {
+        "gpcr.render", "gpcr.encode", "gpcr.encode.quantize",
+        "gpcr.encode.plan", "gpcr.encode.unet", "gpcr.encode.head",
+        "gpcr.splats", "gpcr.raster.view", "gpcr.raster.features",
+        "gpcr.raster.preprocess",
+        "gpcr.raster.bin", "gpcr.raster.order", "gpcr.raster.blend",
+        "gpcr.raster.epilogue", "gpcr.raster.resize", "gpcr.finish"}
+    assert rec.requests == 1 and rec.counters[0]["plan_hits"] == 2
     args = P.build_parser().parse_args(argv)
     info = dict(P.LEARNED_INFO, clr_encoder_channels=args.channels)
     rdr = TRD.PCMLRender(info=info, voxelized=True, scale_factor=448,
@@ -214,9 +218,8 @@ def test_profile_script_follows_the_renderer():
     ref = rdr.render(PointCloud.from_numpy(xyz, rgb), scale=None, cam=cam,
                      fov=45, background_color=1.0)
     assert float((ref["rgb"] - 1.0).abs().max()) > 1e-3  # the cloud is seen
-    for j, k in enumerate(OUTPUTS):
-        got = images[:, 3 * j:3 * j + 3].permute(0, 2, 3, 1)
-        np.testing.assert_allclose(got.numpy(), ref[k][0].numpy(), atol=1e-6,
+    for k in OUTPUTS:
+        np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(), atol=1e-6,
                                    err_msg=k)
 
 
