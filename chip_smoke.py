@@ -9,9 +9,10 @@ Phases, each printing what it found:
 
 1. device: torch / CUDA versions, the card's name and power limit;
 2. build: compiles ``gpcr_tpu_torch/csrc/stream_blend.cu``,
-   ``stream_blend_bwd.cu`` and ``aligned_blend.cu`` with nvcc for sm_90a
-   (all compilers started together) into ``gpcr_tpu_torch/build/`` and
-   prints ptxas' registers, shared memory and spills for C = 3, 9 and 12,
+   ``stream_blend_bwd.cu``, ``aligned_blend.cu`` and ``sparse_conv.cu``
+   with nvcc for sm_90a (all compilers started together) into
+   ``gpcr_tpu_torch/build/`` and prints ptxas' registers, shared memory and
+   spills for C = 3, 9 and 12 and for every sparse conv instantiation,
    and the stages and shared memory of the chunk rings of the count
    forward and the aligned blend at their main-path shapes;
 3. kernel vs plain: on seeded ~20K-gaussian scenes (512² and 1024², 9 and
@@ -32,8 +33,15 @@ Phases, each printing what it found:
    deployed width ``9 32 64 128 256 128`` with seeded random weights (saved
    as a JAX-layout .npz and loaded back), on a synthetic 800K-point cloud
    at scale factor 448, 12 circle views at 512² with x2 supersampling; the
-   launch counter is reset just before it and must grow. Then a small
-   learned render on the card is held against the CPU path; the
+   launch counters are reset just before it: the blend's must grow, the
+   sparse conv's by 68 per encode. Then a small
+   learned render on the card is held against the CPU path; the U-Net's
+   sparse convs on ``csrc/sparse_conv.cu`` at that cloud's shapes (plan
+   and kernel maps built and timed; every conv against its plain
+   version, the same bits on a second launch; each conv timed beside its
+   bound and its plain version, ``[sparse]`` per kind and level and
+   ``[sparse-conv]`` per conv; the U-Net pass on the kernel against the
+   differentiable ops); the
    end-to-end forward entry (``gpcr_tpu_torch/entry.py``, twin of
    ``__graft_entry__.py::entry``: 256 points, ``9 16 16 16 16 16``, one
    32² view) runs on the card with its launch counters at 0 (one serving
@@ -127,10 +135,11 @@ Phases, each printing what it found:
    of the headline, c1, c4 and c5 scenes and the training kernels at the
    demo's view 0 against their plain versions (max 1e-4 / mean 1e-6),
    timed beside their bounds;
-14. one JSON line describing the four kernels (kernel 1 also with its
-   launches in the ``--shard tiles`` run and in one entry call; each with
-   its launches in the bench phase and its times at the benchmarks'
-   shapes), then the result line.
+14. one JSON line describing the five kernels (kernel 1 also with its
+   launches in the ``--shard tiles`` run and in one entry call; each blend
+   kernel with its launches in the bench phase and its times at the
+   benchmarks' shapes; the sparse conv with its per-pass times, bounds
+   and fill at the learned cloud), then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
@@ -212,6 +221,13 @@ DEMO_STEPS, DEMO_RESUME = 100, 5
 ENTRY_TOL, ENTRY_REPS, ENTRY_TIMEOUT = 1e-4, 20, 300
 KERNEL_NAMES = ("stream_blend", "stream_blend_contrib", "stream_blend_bwd",
                 "aligned_blend")
+# the U-Net's sparse convs per encode, each one launch of
+# csrc/sparse_conv.cu: 62 3³ (a block's shared gather as two), 3 down, 3 up
+UNET_CONVS = 68
+# sparse conv kernel vs its plain version: the same float32 products summed
+# in another order, so per output within SPARSE_REL of the sum of the
+# terms' magnitudes (|x| @ |W| + |b| over the same pairs) + SPARSE_ABS
+SPARSE_REL, SPARSE_ABS = 1e-5, 1e-7
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -251,7 +267,8 @@ def phase_device(torch):
 def phase_build():
     from gpcr_tpu_torch.ops import cuda_build
 
-    names = ("stream_blend", "stream_blend_bwd", "aligned_blend")
+    names = ("stream_blend", "stream_blend_bwd", "aligned_blend",
+             "sparse_conv")
     t0 = time.time()
     # one nvcc per source, started together (a thread each: the compiler
     # runs in a child process); a failed build raises out of result()
@@ -264,11 +281,12 @@ def phase_build():
     # and spills, registers and shared memory); show C = 3 (the
     # rasterizer-only timing), 9 (analytic) and 12 (learned, training):
     # the serving and count forwards, the replay backward's two passes
+    # and every instantiation of the sparse convolution (BN, TM, KC)
     for name in names:
         lines = cuda_build.BUILD_LOGS.get(name, "").splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and any(
-                    f"ILi{c}E" in line for c in (3, 9, 12)):
+            if "Compiling entry" in line and (name == "sparse_conv" or any(
+                    f"ILi{c}E" in line for c in (3, 9, 12))):
                 for shown in lines[i:i + 4]:
                     log(f"[build] {name}: " + shown.strip())
     # the chunk rings of the count forward and the aligned blend at their
@@ -546,9 +564,12 @@ def _learned_inputs(torch):
 
 
 def phase_learned(torch, B, RS):
+    from gpcr_tpu_torch.ops import sparse as TSP
+
     root, ckpt = _learned_inputs(torch)
     torch.cuda.reset_peak_memory_stats()
     RS.LAUNCHES = 0
+    TSP.LAUNCHES = 0
     res = B.main([
         "pcrender", "--ckpt", ckpt, "--id_list", "0519",
         "--dataset_root", root, "--rpth", os.path.join(WORK, "learned_out") + "/",
@@ -560,6 +581,7 @@ def phase_learned(torch, B, RS):
         "--dup_cap", str(DUP_CAP),
     ])
     launches = RS.LAUNCHES
+    sparse_launches = TSP.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     out, timing = res["0519"]
     for k in ("rgb", "xyz_w", "hitmap", "normal"):
@@ -572,11 +594,15 @@ def phase_learned(torch, B, RS):
         f"{timing['rgb_time']:.4f} s, {timing['rgb_time'] / 12 * 1e3:.2f} "
         f"ms/view, peak memory {peak / 2**30:.3f} GiB, coverage "
         f"{coverage:.4f}, dup_overflow {timing['dup_overflow']}, kernel "
-        f"launches {launches}")
+        f"launches {launches}, sparse conv launches {sparse_launches}")
     check(coverage > 0, "learned render covers no pixel")
     check(timing["dup_overflow"] == 0, "learned render dropped entries")
     check(launches > 0, "the learned path never launched the blend kernel")
-    return launches, timing, peak, ckpt
+    # every conv of every encode (two per render) on the kernel
+    check(sparse_launches > 0 and sparse_launches % UNET_CONVS == 0,
+          f"{sparse_launches} sparse conv launches: not {UNET_CONVS} per "
+          "encode")
+    return launches, sparse_launches, timing, peak, ckpt
 
 
 def phase_learned_small(torch):
@@ -609,6 +635,173 @@ def phase_learned_small(torch):
     log(f"[learned-small] 48² x2 views, cuda vs cpu max|d|={worst:.3e}")
     check(worst <= 1e-4, f"learned render on the card disagrees: {worst}")
     return worst
+
+
+def _unet_calls(torch, model, grid, plan):
+    """Every ``sparse.conv_map`` call of one inference U-Net forward, per
+    weight: [(cmap, feats, weight, bias, relu)]."""
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    calls, real = [], TSP.conv_map
+
+    def record(cmap, feats_list, weights, biases, relu=False):
+        calls.extend((cmap, f, w, b, relu)
+                     for f, w, b in zip(feats_list, weights, biases))
+        return real(cmap, feats_list, weights, biases, relu)
+
+    TSP.conv_map = record
+    try:
+        with torch.no_grad():
+            model.color_encoder(grid, plan)
+    finally:
+        TSP.conv_map = real
+    return calls
+
+
+def _sparse_bound_ms(cmap, cin, cout):
+    """(bound by operations, bound by bytes) in ms of one conv: 2 Cin Cout
+    per map pair (an output row and an offset with an input row: the work
+    the conv needs, whatever the kernel's tiles compute) at PEAK_FLOPS;
+    its input rows, weight and output rows each once, and the map, at
+    PEAK_BYTES."""
+    t = cmap.tiled_map()
+    flops = 2.0 * t.pairs * cin * cout
+    nbytes = 4 * (cmap.src.num * cin + t.nbr.shape[0] * cin * cout
+                  + cmap.dst.num * cout + t.nbr.numel() + t.rows.numel()
+                  + t.tile_masks.numel())
+    return flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def phase_sparse_conv(torch):
+    """The U-Net's sparse convolutions on ``csrc/sparse_conv.cu`` at the
+    learned cell's shapes: the smoke's 800K-point cloud (717,176 voxels),
+    PCEncoder at the deployed width with seeded weights. Builds the plan
+    (timed), records the inputs of every conv of one inference forward,
+    holds every conv against the plain version (SPARSE_REL / SPARSE_ABS)
+    and one per level to the same bits on a second launch, then times
+    every conv (CUDA events) beside its bound and the plain version, and
+    the whole U-Net pass on the kernel against the same pass on the
+    differentiable ops. Returns the record for the kernels line."""
+    from gpcr_tpu_torch.cli.profile_pcrender import (LEARNED_INFO,
+                                                     synthetic_cloud)
+    from gpcr_tpu_torch.models.encoder import (PCEncoder, PCMLInfo,
+                                               assemble_input_features)
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    dev = torch.device("cuda")
+    info = PCMLInfo.from_dict(dict(LEARNED_INFO, scale_factor=448))
+    coords, rgb = synthetic_cloud(LEARNED_POINTS, 448, seed=0)
+    xyz = torch.from_numpy(coords).to(dev)
+    grid = TSP.quantize_average(xyz, assemble_input_features(
+        info, xyz, torch.from_numpy(rgb).to(dev), 512))
+    check(grid.num == LEARNED_VOXELS, f"the learned grid has {grid.num} voxels")
+    model = PCEncoder(info, generator=torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = model.build_plan(grid)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    # the kernel maps, which a forward builds at each map's first launch
+    t0 = time.perf_counter()
+    for ms in plan["maps"].values():
+        for m in ms:
+            m.tiled_map()
+    torch.cuda.synchronize()
+    tiles_s = time.perf_counter() - t0
+    level = {id(g): i for i, g in enumerate(plan["grids"])}
+    calls = _unet_calls(torch, model, grid, plan)
+    check(len(calls) == UNET_CONVS, f"{len(calls)} convs in one forward")
+
+    records, worst = [], 0.0
+    for i, (cmap, feats, w, b, relu) in enumerate(calls):
+        cin, cout = w.shape[1], w.shape[2]
+        lvl = level[id(cmap.dst)]
+        t = cmap.tiled_map()
+
+        def kernel():
+            return TSP.conv_map(cmap, [feats], [w], [b], relu=relu)[0]
+
+        def plain():
+            return TSP.conv_map_plain(t, feats, w, b, cmap.dst.num, relu)
+
+        with torch.no_grad():
+            got, ref = kernel(), plain()
+            scale = TSP.conv_map_plain(t, feats.abs(), w.abs(), b.abs(),
+                                       cmap.dst.num)
+            excess = float(((got - ref).abs()
+                            - SPARSE_REL * scale - SPARSE_ABS).max())
+            err = float((got - ref).abs().max())
+            worst = max(worst, err)
+            check(excess <= 0, f"sparse conv {i} ({cmap.kind}, level "
+                  f"{lvl}, {cin} -> {cout}) disagrees with its plain "
+                  f"version: max|d| {err}")
+            if not any(r["level"] == lvl for r in records):
+                check(torch.equal(got, kernel()), f"sparse conv {i}: "
+                      "another launch gave other bits")
+            del got, ref, scale
+            ms = _event_ms(torch, kernel, 5)
+            plain_ms = _event_ms(torch, plain, 1, warmup=0)
+        ops_ms, bytes_ms = _sparse_bound_ms(cmap, cin, cout)
+        records.append(dict(
+            kind=cmap.kind, level=lvl, cin=cin, cout=cout, rows=cmap.dst.num,
+            pairs=t.pairs, slots=t.slots, fill=t.pairs / t.slots, ms=ms,
+            plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            slots_ms=2.0 * t.slots * cin * cout / PEAK_FLOPS * 1e3))
+
+    def ops_path(cmap, feats_list, weights, biases, relu=False):
+        outs = TSP._conv_ops(cmap, feats_list, weights, biases)
+        return [torch.relu(o) for o in outs] if relu else outs
+
+    with torch.no_grad():
+        unet_ms = _event_ms(torch, lambda: model.color_encoder(grid, plan), 5)
+        real = TSP.conv_map
+        TSP.conv_map = ops_path
+        try:
+            ops_ms = _event_ms(torch, lambda: model.color_encoder(grid, plan),
+                               2)
+        finally:
+            TSP.conv_map = real
+
+    by = {}
+    for r in records:
+        key = (r["kind"], r["level"])
+        agg = by.setdefault(key, dict(convs=0, ms=0.0, plain_ms=0.0,
+                                      bound_ms=0.0, slots_ms=0.0, pairs=0,
+                                      slots=0))
+        agg["convs"] += 1
+        for k in ("ms", "plain_ms", "bound_ms", "slots_ms", "pairs",
+                  "slots"):
+            agg[k] += r[k]
+    for agg in by.values():
+        agg["fill"] = agg["pairs"] / agg["slots"]
+    for (kind, lvl), agg in sorted(by.items()):
+        log(f"[sparse] {kind} -> level {lvl} ({plan['grids'][lvl].num} rows):"
+            f" {agg['convs']} convs, kernel {agg['ms']:.4f} ms, bound "
+            f"{agg['bound_ms']:.4f} ms ({agg['bound_ms'] / agg['ms']:.1%}), "
+            f"pairs {agg['pairs']}, slots {agg['slots']} (fill "
+            f"{agg['fill']:.3f}; the slots at peak {agg['slots_ms']:.4f} "
+            f"ms), plain {agg['plain_ms']:.2f} ms")
+    total = {k: sum(r[k] for r in records)
+             for k in ("ms", "plain_ms", "bound_ms", "slots_ms", "pairs",
+                       "slots")}
+    total["fill"] = total["pairs"] / total["slots"]
+    log(f"[sparse] per pass: {len(records)} launches, kernels "
+        f"{total['ms']:.4f} ms (bound {total['bound_ms']:.4f} ms, "
+        f"{total['bound_ms'] / total['ms']:.1%}), pairs {total['pairs']}, "
+        f"slots {total['slots']} (fill {total['fill']:.4f}; the slots at "
+        f"peak {total['slots_ms']:.4f} ms), plain {total['plain_ms']:.1f} "
+        f"ms; U-Net pass {unet_ms:.4f} ms on the kernel, {ops_ms:.4f} ms "
+        f"on the differentiable ops; plan {plan_s:.3f} s, kernel maps "
+        f"{tiles_s:.3f} s; levels "
+        f"{[g.num for g in plan['grids']]}; worst max|d| {worst:.3e}")
+    for r in records:
+        log("[sparse-conv] " + json.dumps(r))
+    return dict(unet_ms=unet_ms, unet_ops_ms=ops_ms, plan_s=plan_s,
+                tiles_s=tiles_s, max_abs_err=worst, per_level={
+                    f"{kind}.L{lvl}": agg for (kind, lvl), agg in by.items()},
+                **{f"pass_{k}": v for k, v in total.items()})
 
 
 def _host_syncs(torch, fn):
@@ -2545,8 +2738,10 @@ def main() -> int:
         worst, worst_a, worst_b = run(phase_kernel_vs_plain, torch, dev)
         worst_c = run(phase_aligned_vs_plain, torch, dev)
         run(phase_golden, torch, B)
-        launches, timing, peak, ckpt = run(phase_learned, torch, B, RS)
+        launches, sparse_launches, timing, peak, ckpt = run(
+            phase_learned, torch, B, RS)
         run(phase_learned_small, torch)
+        sparse = run(phase_sparse_conv, torch)
         entry_launches = run(phase_entry, torch, RS, RV, card)
         splats = _learned_splats(torch, ckpt)
         serve, pairs, entries, work = run(phase_timing, torch, splats)
@@ -2584,7 +2779,9 @@ def main() -> int:
         f"{BWD_REL:g} * max|plain| + {BWD_ABS:g} and ||d||_2 <= "
         f"{BWD_L2_REL:g} * ||plain||_2 + {BWD_ABS:g})")
     # no single PyTorch call computes any of the four (a sorted,
-    # early-terminating alpha blend and its replay), so library_ms is null
+    # early-terminating alpha blend and its replay), so library_ms is null;
+    # nor a sparse convolution over a neighbour map (sparse_conv: its plain
+    # version and the differentiable ops are timed in phase_sparse_conv)
     # entry_launches: kernel 1's launches in one call of the entry's fn;
     # bench_launches: each kernel's launches in phase_bench's entry points;
     # bench_shapes: the kernel at the benchmarks' shapes (kernel 1 at view 0
@@ -2618,6 +2815,10 @@ def main() -> int:
          "replaces": TPU_KERNEL_ALIGNED, "launches": aligned_launches,
          **aligned, "library_ms": None,
          "bench_launches": bench["aligned_blend"]},
+        {"name": "sparse_conv", "route": "cuda",
+         "source": "gpcr_tpu_torch/csrc/sparse_conv.cu",
+         "replaces": None, "launches": sparse_launches, **sparse,
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

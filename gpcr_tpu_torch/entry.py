@@ -7,7 +7,8 @@ tiny scene:
 
 1. ``assemble_input_features`` (world xyz, quantization offset, rgb);
 2. ``sparse.quantize_average`` onto the integer voxel grid;
-3. ``PCEncoder.build_plan`` (the coordinate hierarchy and kernel maps);
+3. ``PCEncoder.build_plan`` (the coordinate hierarchy and the convs'
+   maps);
 4. the encoder with ``params`` applied by ``torch.func.functional_call``
    (the counterpart of ``model.apply(params, ...)``);
 5. ``pcgc_rescale(..., 512, 96)`` of the splat centres;
@@ -37,13 +38,13 @@ the 244 voxels of level 2 and 64 of level 3, which holds 195), so the two
 Unlike the JAX ``fn``, which is one jitted graph, this one waits on the
 host where a size depends on the data: ``torch.unique`` in
 ``quantize_average`` and in each downsampling of ``build_plan``, the
-boolean octant masks of the U-Net's stride-2 convs (eight per conv in
-``ops/sparse.py::conv_down`` and ``conv_up_generative``) and the emit
-size of the binning (``ops/rasterize.py::emit_tiles``). One call on an
-H100 waited 102 times, 96 of them at the octant masks
-(``chip_smoke.py``'s ``phase_entry`` counts them by line). A
-``torch.compile`` or CUDA-graph capture of ``fn`` would break at each of
-them; this module takes neither.
+first sparse-conv launch over each of the plan's 10 maps (which reads
+the map's pair and slot counts, ``ops/sparse.py::tile_map``; ``fn``
+builds a plan per call) and the emit size of the binning
+(``ops/rasterize.py::emit_tiles``). One call on an H100 waited 16 times,
+10 of them at the maps (``chip_smoke.py``'s ``phase_entry`` counts them
+by line). A ``torch.compile`` or CUDA-graph capture of ``fn`` would break
+at each of them; this module takes neither.
 
     python -m gpcr_tpu_torch.entry [--device cpu]
 

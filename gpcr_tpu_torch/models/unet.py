@@ -7,7 +7,10 @@ tree (``conv0.kernel``, ``block0.0.conv0_0.bias``, ``up0``, ``conv_3``, ...),
 so JAX params, native ``.npz`` checkpoints and reference state dicts load
 by name. Every level's 27-neighbour kernel map comes from
 ``sparse.build_kernel_map`` once per coordinate set (``build_plan``) and
-is shared by every conv at that level.
+is shared by every conv at that level. Every sparse conv goes through
+``sparse.conv_map`` over one of the plan's ``ConvMap``s: on a card, without
+a gradient, the kernel ``csrc/sparse_conv.cu``; otherwise the
+differentiable gather-GEMM ops.
 """
 
 from __future__ import annotations
@@ -50,18 +53,18 @@ class InceptionResNet(nn.Module):
         self.conv1_1 = SparseConvParams(27, c // 4, c // 4, **kw)
         self.conv1_2 = SparseConvParams(1, c // 4, c // 2, **kw)
 
-    def forward(self, grid: sparse.SparseGrid, kmap: torch.Tensor):
-        x = grid.feats
+    def forward(self, x: torch.Tensor, cmap: sparse.ConvMap):
         h1 = torch.relu(x @ self.conv1_0.kernel[0] + self.conv1_0.bias)
         # conv0_0 (on x) and conv1_1 (on h1) share one neighbour gather
-        o00, o11 = sparse.conv_multi(
-            grid, kmap, [x, h1],
+        # where the differentiable ops run
+        o00, o11 = sparse.conv_map(
+            cmap, [x, h1],
             [self.conv0_0.kernel, self.conv1_1.kernel],
-            [self.conv0_0.bias, self.conv1_1.bias],
+            [self.conv0_0.bias, self.conv1_1.bias], relu=True,
         )
-        out0 = sparse.conv(grid.replace(feats=torch.relu(o00)), kmap,
-                           self.conv0_1.kernel, self.conv0_1.bias)
-        out1 = torch.relu(o11) @ self.conv1_2.kernel[0] + self.conv1_2.bias
+        (out0,) = sparse.conv_map(cmap, [o00], [self.conv0_1.kernel],
+                                  [self.conv0_1.bias])
+        out1 = o11 @ self.conv1_2.kernel[0] + self.conv1_2.bias
         return torch.cat([out0, out1], dim=-1) + x
 
 
@@ -110,8 +113,9 @@ class SparseUNet(nn.Module):
 
     @staticmethod
     def build_plan(grid: sparse.SparseGrid) -> dict:
-        """Coordinate hierarchy + kernel maps for one input coordinate set
-        (the MinkowskiEngine coordinate-manager equivalent); reusable across
+        """Coordinate hierarchy and every conv's ``ConvMap`` (the 3³
+        kernel maps among them) for one input coordinate set (the
+        MinkowskiEngine coordinate-manager equivalent); reusable across
         forward passes on the same cloud."""
         grids = [grid]
         downs = []  # (parent_slot, octant) per level transition
@@ -121,59 +125,67 @@ class SparseUNet(nn.Module):
             downs.append((parent_slot, octant))
             grids.append(pgrid)
             g = pgrid
-        kmaps = [sparse.build_kernel_map(g, 3) for g in grids]
-        return {"grids": grids, "downs": downs, "kmaps": kmaps}
+        maps = {
+            "cube": [sparse.ConvMap("cube", g, g,
+                                    kmap=sparse.build_kernel_map(g, 3))
+                     for g in grids],
+            # down[l]: level l -> l + 1; up[l]: level l + 1 -> l
+            "down": [sparse.ConvMap("down", grids[lvl], grids[lvl + 1],
+                                    parent_slot=s, octant=o)
+                     for lvl, (s, o) in enumerate(downs)],
+            "up": [sparse.ConvMap("up", grids[lvl + 1], grids[lvl],
+                                  parent_slot=s, octant=o)
+                   for lvl, (s, o) in enumerate(downs)],
+        }
+        return {"grids": grids, "maps": maps}
 
     # ---- forward (model_v2.py:202-226) --------------------------------------
 
     def forward(self, grid: sparse.SparseGrid, plan: dict) -> torch.Tensor:
-        grids, downs, kmaps = plan["grids"], plan["downs"], plan["kmaps"]
-        relu = torch.relu
+        maps = plan["maps"]
 
-        def conv3x(p, feats, lvl):
-            return sparse.conv(grids[lvl].replace(feats=feats), kmaps[lvl],
-                               p.kernel, p.bias)
+        def conv3x(p, feats, lvl, relu=False):
+            return sparse.conv_map(maps["cube"][lvl], [feats], [p.kernel],
+                                   [p.bias], relu=relu)[0]
 
-        def down(p, feats, lvl):
-            parent_slot, octant = downs[lvl]
-            return sparse.conv_down(
-                grids[lvl].replace(feats=feats), grids[lvl + 1],
-                parent_slot, octant, p.kernel, p.bias)
+        def down(p, feats, lvl):  # level lvl -> lvl + 1, ReLU'd
+            return sparse.conv_map(maps["down"][lvl], [feats], [p.kernel],
+                                   [p.bias], relu=True)[0]
 
-        def up(p, feats_coarse, lvl_coarse, lvl_fine):
-            return sparse.conv_up_generative(
-                grids[lvl_coarse].replace(feats=feats_coarse),
-                grids[lvl_fine].codes, p.kernel, p.bias)
+        def up(p, feats_coarse, lvl_fine):  # level lvl_fine + 1 -> lvl_fine
+            return sparse.conv_map(maps["up"][lvl_fine], [feats_coarse],
+                                   [p.kernel], [p.bias], relu=True)[0]
 
         def run_blocks(blocks, feats, lvl):
             for block in blocks:
-                feats = block(grids[lvl].replace(feats=feats), kmaps[lvl])
+                feats = block(feats, maps["cube"][lvl])
             return feats
 
-        out_x = relu(conv3x(self.conv0, grid.feats, 0))
+        out_x = conv3x(self.conv0, grid.feats, 0, relu=True)
 
-        f1 = relu(down(self.down0, out_x, 0))
+        f1 = down(self.down0, out_x, 0)
         f1 = run_blocks(self.block0, f1, 1)
 
-        h = relu(conv3x(self.conv1, f1, 1))
-        f2 = relu(down(self.down1, h, 1))
+        h = conv3x(self.conv1, f1, 1, relu=True)
+        f2 = down(self.down1, h, 1)
         f2 = run_blocks(self.block1, f2, 2)
 
-        h = relu(conv3x(self.conv2, f2, 2))
-        f3 = relu(down(self.down2, h, 2))
+        h = conv3x(self.conv2, f2, 2, relu=True)
+        f3 = down(self.down2, h, 2)
         f3 = run_blocks(self.block2, f3, 3)
         f3 = conv3x(self.conv3, f3, 3)
 
-        u2 = relu(up(self.up0, f3, 3, 2))
-        f2d = relu(conv3x(self.conv_0, torch.cat([u2, f2], dim=-1), 2))
+        u2 = up(self.up0, f3, 2)
+        f2d = conv3x(self.conv_0, torch.cat([u2, f2], dim=-1), 2, relu=True)
         f2d = run_blocks(self.block_0, f2d, 2)
 
-        u1 = relu(up(self.up1, f2d, 2, 1))
-        f1d = relu(conv3x(self.conv_1, torch.cat([u1, f1], dim=-1), 1))
+        u1 = up(self.up1, f2d, 1)
+        f1d = conv3x(self.conv_1, torch.cat([u1, f1], dim=-1), 1, relu=True)
         f1d = run_blocks(self.block_1, f1d, 1)
 
-        u0 = relu(up(self.up2, f1d, 1, 0))
-        f0d = relu(conv3x(self.conv_2, torch.cat([u0, out_x], dim=-1), 0))
+        u0 = up(self.up2, f1d, 0)
+        f0d = conv3x(self.conv_2, torch.cat([u0, out_x], dim=-1), 0,
+                     relu=True)
         f0d = run_blocks(self.block_2, f0d, 0)
 
         return conv3x(self.conv_3, f0d, 0)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card (``gpu`` marker): the serving
 stream blend (with its warp-level culling), the contributor-count
 forward and the aligned all-tiles blend (both walking a chunk ring), the
-replay backward (tiles split into segments); and the data path's torch
+replay backward (tiles split into segments); the U-Net's sparse
+convolution (``csrc/sparse_conv.cu``, its own tolerance below); and the
+data path's torch
 ops on the card against the CPU (voxel downsampling, outlier removal,
 RGBD unprojection, segment max / min, the surfel z-buffer, the k nearest
 points to rays, sparse trilinear interpolation and pruning); and the
@@ -745,3 +747,132 @@ def test_entry_on_the_card_matches_cpu(cuda):
     assert tuple(got.shape) == (12, TE.HW, TE.HW)
     assert bool(torch.isfinite(got).all())
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# the U-Net's sparse convolutions: csrc/sparse_conv.cu
+# --------------------------------------------------------------------------
+
+# The kernel and its plain version sum the same float32 products in another
+# order, so an output differs by float32 rounding of its sum: held to
+# SPARSE_REL of the sum of the terms' magnitudes (|x| @ |W| + |b| over the
+# same pairs; the rounding of n terms stays far below n * 2^-24 of it),
+# plus SPARSE_ABS for outputs whose terms all vanish.
+SPARSE_REL, SPARSE_ABS = 1e-5, 1e-7
+UNET_WIDTHS = ["9 32 64 128 256 128", "9 16 16 16 16 16"]
+
+
+def _sparse_encoder(dev, widths, n=60000, seed=11):
+    """A seeded PCEncoder of ``widths`` on ``dev`` and a quantized
+    shell-shaped cloud (a few voxels thick, like a scanned surface) with
+    its plan."""
+    from gpcr_tpu_torch.models.encoder import (PCEncoder, PCMLInfo,
+                                               assemble_input_features)
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    info = PCMLInfo(clr_encoder_channels=widths, scale_factor=448)
+    rng = np.random.RandomState(seed)
+    v = rng.randn(n, 3)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    xyz = v * (100.0 + rng.rand(n, 1) * 3.0) + 512.0
+    xyz = torch.from_numpy(xyz.astype(np.float32)).to(dev)
+    rgb = torch.from_numpy((v * 0.5 + 0.5).astype(np.float32)).to(dev)
+    grid = TSP.quantize_average(
+        xyz, assemble_input_features(info, xyz, rgb, 512))
+    model = PCEncoder(info, generator=torch.Generator().manual_seed(seed))
+    # non-zero biases, so the epilogue's bias add is exercised
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                    .manual_seed(len(name))) * 0.1)
+    model = model.to(dev).eval()
+    return model, grid, model.build_plan(grid)
+
+
+def _recorded_convs(monkeypatch, model, grid, plan):
+    """Every conv_map call of one inference forward: (cmap, feats, weight,
+    bias, relu) per weight."""
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    calls, real = [], TSP.conv_map
+
+    def record(cmap, feats_list, weights, biases, relu=False):
+        calls.extend((cmap, f.clone(), w, b, relu)
+                     for f, w, b in zip(feats_list, weights, biases))
+        return real(cmap, feats_list, weights, biases, relu)
+
+    monkeypatch.setattr(TSP, "conv_map", record)
+    with torch.no_grad():
+        model.color_encoder(grid, plan)
+    monkeypatch.setattr(TSP, "conv_map", real)
+    return calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths", UNET_WIDTHS)
+@pytest.mark.parametrize("kind", ["cube", "down", "up"])
+def test_sparse_conv_kernel_matches_plain(cuda, monkeypatch, kind, widths):
+    """Each (Cin, Cout) of ``kind`` in a U-Net of ``widths``, on the inputs
+    its forward gives it: the kernel against ``conv_map_plain`` within the
+    rounding limit above, and the same bits on a second launch."""
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    model, grid, plan = _sparse_encoder(cuda, widths)
+    calls = _recorded_convs(monkeypatch, model, grid, plan)
+    assert len(calls) == 68  # 62 cube (conv_multi as two), 3 down, 3 up
+    seen = set()
+    for cmap, feats, w, b, relu in calls:
+        shape = (cmap.src.num, w.shape[1], w.shape[2])
+        if cmap.kind != kind or shape in seen:
+            continue
+        seen.add(shape)
+        with torch.no_grad():
+            before = TSP.LAUNCHES
+            (got,) = TSP.conv_map(cmap, [feats], [w], [b], relu=relu)
+            (again,) = TSP.conv_map(cmap, [feats], [w], [b], relu=relu)
+            torch.cuda.synchronize()
+            assert TSP.LAUNCHES == before + 2
+            tiles = cmap.tiled_map()
+            ref = TSP.conv_map_plain(tiles, feats, w, b, cmap.dst.num,
+                                     relu=relu)
+            scale = TSP.conv_map_plain(tiles, feats.abs(), w.abs(), b.abs(),
+                                       cmap.dst.num)
+        assert got.shape == ref.shape == (cmap.dst.num, w.shape[2])
+        assert torch.equal(got, again), shape
+        excess = (got - ref).abs() - (SPARSE_REL * scale + SPARSE_ABS)
+        assert float(excess.max()) <= 0, (kind, shape,
+                                          float((got - ref).abs().max()))
+    assert seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths", UNET_WIDTHS)
+def test_encoder_on_the_kernel_matches_the_differentiable_ops(cuda, widths):
+    """A whole PCEncoder forward: inference (every conv on the kernel,
+    68 launches) against the same forward with gradients first (the
+    differentiable ops: no launch, and no kernel map built) at 1e-4 of
+    each output's largest value; the plan's fill (pairs / slots) reported
+    by the maps is in (0, 1]."""
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    model, grid, plan = _sparse_encoder(cuda, widths)
+    before = TSP.LAUNCHES
+    with torch.enable_grad():
+        sp_ref = model(grid, plan)
+        torch.cuda.synchronize()
+        assert sp_ref.scale.requires_grad
+    assert TSP.LAUNCHES == before  # a gradient keeps the ops
+    assert all(m.tiles is None for ms in plan["maps"].values() for m in ms)
+    with torch.no_grad():
+        sp = model(grid, plan)
+        torch.cuda.synchronize()
+    assert TSP.LAUNCHES == before + 68
+    for name in ("primitives", "rotation", "scale", "offsets"):
+        got, ref = getattr(sp, name), getattr(sp_ref, name).detach()
+        err = float((got - ref).abs().max())
+        assert err <= 1e-4 * max(float(ref.abs().max()), 1.0), (name, err)
+    # every map of the plan was tiled by its first launch
+    tiles = [m.tiles for ms in plan["maps"].values() for m in ms]
+    assert all(t is not None for t in tiles)
+    assert all(0 < t.pairs <= t.slots for t in tiles)

@@ -157,6 +157,183 @@ def test_sparse_convs_match_jax(op):
         np.testing.assert_allclose(g.numpy(), np.asarray(r)[:rows], atol=1e-4)
 
 
+def _maps_cloud(seed=5):
+    """A dense small cloud (a solid ball, so rows hit many offsets) with
+    its plan's ConvMaps built on the CPU."""
+    xyz, rgb = sphere_cloud(n=3000, seed=seed, grid=24, jitter=2.0)
+    g = _tgrid(xyz, np.concatenate([xyz / 100.0, rgb], -1).astype(np.float32))
+    return g, TSP.downsample_coords(g)
+
+
+def _row_masks(nbr):
+    bits = torch.arange(nbr.shape[1])
+    return ((nbr >= 0).long() << bits).sum(1)
+
+
+@pytest.mark.parametrize("kind", ["cube", "down", "up"])
+def test_tile_map_orders_rows_and_covers_every_pair(kind):
+    """The TiledMap of each map kind against its code-order neighbours:
+    rows sorted (stably) by their hit mask, each sorted row's neighbours,
+    tile masks that are exactly the OR of their rows' masks, and the
+    host's pairs / slots."""
+    g, (pg, slot, octant) = _maps_cloud()
+    cmap = {"cube": TSP.ConvMap("cube", g, g,
+                                kmap=TSP.build_kernel_map(g, 3)),
+            "down": TSP.ConvMap("down", g, pg, parent_slot=slot,
+                                octant=octant),
+            "up": TSP.ConvMap("up", pg, g, parent_slot=slot,
+                              octant=octant)}[kind]
+    nbr = cmap.neighbours()
+    n, k = nbr.shape
+    tiles = TSP.tile_map(nbr)
+    R = TSP.TILE_ROWS
+    n_pad = tiles.rows.shape[0]
+    assert n_pad == -(-n // R) * R > n  # the last tile is padded
+    order = tiles.rows[:n].long()
+    assert torch.equal(torch.sort(order).values, torch.arange(n))
+    assert bool((tiles.rows[n:] == -1).all())
+    masks = _row_masks(nbr)[order]
+    assert bool((masks[1:] >= masks[:-1]).all())
+    same = masks[1:] == masks[:-1]
+    assert bool((order[1:][same] > order[:-1][same]).all())  # stable
+    assert tiles.nbr.shape == (k, n_pad) and tiles.nbr.dtype == torch.int32
+    assert torch.equal(tiles.nbr[:, :n].T.long(), nbr[order])
+    assert bool((tiles.nbr[:, n:] == -1).all())
+    hit = tiles.nbr.T.reshape(-1, R, k) >= 0
+    want = (hit.any(1).long() << torch.arange(k)).sum(1)
+    assert torch.equal(tiles.tile_masks.long(), want)
+    # every pair lies in an offset of its tile's mask
+    covered = (tiles.tile_masks.long()[:, None] >> torch.arange(k)) & 1
+    assert bool((covered[:, None, :].expand_as(hit)[hit] == 1).all())
+    assert tiles.pairs == int((nbr >= 0).sum())
+    assert tiles.slots == int(covered.sum()) * R
+    assert tiles.pairs <= tiles.slots <= n_pad * k
+    if kind == "cube":
+        kmap = TSP.build_kernel_map(g, 3)
+        assert torch.equal(nbr, torch.where(kmap < g.num, kmap, -1))
+        # sorted by mask, fewer slots than every offset of every tile
+        assert tiles.slots < n_pad * k
+
+
+def test_child_and_parent_maps_match_downsample_coords():
+    """The down map holds each parent's child in its octant's column, the
+    up map each fine row's parent (the parent ``lookup`` finds) in its
+    octant's column, -1 elsewhere."""
+    g, (pg, slot, octant) = _maps_cloud()
+    child = TSP.ConvMap("down", g, pg, parent_slot=slot,
+                        octant=octant).neighbours()
+    assert child.shape == (pg.num, 8)
+    fine = torch.arange(g.num)
+    assert torch.equal(child[slot, octant], fine)
+    assert int((child >= 0).sum()) == g.num
+    assert bool((child >= 0).any(1).all())  # every parent has a child
+    hit = child >= 0
+    kids = child[hit]
+    np.testing.assert_array_equal(  # a child sits in its own octant
+        TSP._octant(g.coords()[kids]).numpy(),
+        torch.arange(8).expand(pg.num, 8)[hit].numpy())
+    np.testing.assert_array_equal(
+        (g.coords()[kids] >> 1).numpy(),
+        pg.coords()[torch.arange(pg.num)[:, None].expand(-1, 8)[hit]].numpy())
+
+    parent = TSP.ConvMap("up", pg, g, parent_slot=slot,
+                         octant=octant).neighbours()
+    assert parent.shape == (g.num, 8)
+    assert int((parent >= 0).sum()) == g.num
+    pidx, found = TSP.lookup(pg.codes, TSP.pack_coords(g.coords() >> 1))
+    assert bool(found.all())
+    assert torch.equal(parent[fine, octant], pidx)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("kind", ["cube", "down", "up"])
+def test_map_driven_sum_matches_the_ops(kind, relu):
+    """``conv_map_plain`` over the TiledMap equals ``conv`` / ``conv_down``
+    / ``conv_up_generative`` (atol 1e-5: the same float32 products summed
+    in another order), and ``conv_map`` on CPU tensors is those ops."""
+    g, (pg, slot, octant) = _maps_cloud(seed=6)
+    rng = np.random.RandomState(7)
+    kv = 27 if kind == "cube" else 8
+    src, dst = {"cube": (g, g), "down": (g, pg), "up": (pg, g)}[kind]
+    feats = torch.from_numpy(rng.randn(src.num, 6).astype(np.float32))
+    w = torch.from_numpy((rng.randn(kv, 6, 5) * 0.3).astype(np.float32))
+    b = torch.from_numpy(rng.randn(5).astype(np.float32))
+    if kind == "cube":
+        cmap = TSP.ConvMap("cube", g, g, kmap=TSP.build_kernel_map(g, 3))
+        ref = TSP.conv(g.replace(feats=feats), cmap.kmap, w, b)
+    elif kind == "down":
+        cmap = TSP.ConvMap("down", g, pg, parent_slot=slot, octant=octant)
+        ref = TSP.conv_down(g.replace(feats=feats), pg, slot, octant, w, b)
+    else:
+        cmap = TSP.ConvMap("up", pg, g, parent_slot=slot, octant=octant)
+        ref = TSP.conv_up_generative(pg.replace(feats=feats), g.codes, w, b)
+    if relu:
+        ref = torch.relu(ref)
+    got = TSP.conv_map_plain(cmap.tiled_map(), feats, w, b, dst.num,
+                             relu=relu)
+    assert got.shape == (dst.num, 5)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+    before = TSP.LAUNCHES
+    (ops,) = TSP.conv_map(cmap, [feats], [w], [b], relu=relu)
+    assert TSP.LAUNCHES == before  # the CPU never reaches the kernel
+    assert torch.equal(ops, ref)
+
+
+def test_check_conv_inputs_raises_on_what_the_kernel_does_not_take():
+    g, _ = _maps_cloud()
+    cube = TSP.ConvMap("cube", g, g, kmap=TSP.build_kernel_map(g, 3))
+    feats = torch.zeros((g.num, 4))
+    w = torch.zeros((27, 4, 3))
+    assert cube.tiles is None
+    TSP.check_conv_inputs(cube, feats, w, torch.zeros(3))  # accepted
+    assert cube.tiles is not None  # built at the first check, and kept
+    tiles = cube.tiles
+    TSP.check_conv_inputs(cube, feats, w, None)
+    assert cube.tiled_map() is tiles
+    with pytest.raises(TypeError):
+        TSP.check_conv_inputs(cube, feats.double(), w, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        TSP.check_conv_inputs(cube, torch.zeros((4, g.num)).T, w, None)
+    with pytest.raises(ValueError, match="feats shape"):
+        TSP.check_conv_inputs(cube, feats[:-1], w, None)
+    with pytest.raises(ValueError, match="weight shape"):
+        TSP.check_conv_inputs(cube, feats, w[:8], None)
+    with pytest.raises(ValueError, match="bias"):
+        TSP.check_conv_inputs(cube, feats, w, torch.zeros(4))
+
+
+def test_plan_maps_and_conv_map_on_the_cpu():
+    """A plan carries the ConvMaps of every conv and builds no kernel
+    maps; the U-Net's forward on the CPU is the differentiable ops' and
+    builds none either."""
+    xyz, rgb = sphere_cloud(n=400, seed=8, grid=64)
+    info = PCMLInfo.from_dict(INFO)
+    coords = torch.from_numpy(np.round(xyz))
+    grid = TSP.quantize_average(coords, assemble_input_features(
+        info, coords, torch.from_numpy(rgb), 512))
+    model = PCEncoder(info)
+    plan = model.build_plan(grid)
+    maps = plan["maps"]
+    assert [len(maps[k]) for k in ("cube", "down", "up")] == [4, 3, 3]
+    assert all(m.tiles is None for ms in maps.values() for m in ms)
+    for lvl in range(3):
+        assert maps["down"][lvl].src is plan["grids"][lvl]
+        assert maps["down"][lvl].dst is plan["grids"][lvl + 1]
+        assert maps["up"][lvl].src is plan["grids"][lvl + 1]
+        assert maps["up"][lvl].dst is plan["grids"][lvl]
+    for lvl, cube in enumerate(maps["cube"]):
+        assert cube.src is cube.dst is plan["grids"][lvl]
+        assert torch.equal(cube.kmap,
+                           TSP.build_kernel_map(plan["grids"][lvl], 3))
+    before = TSP.LAUNCHES
+    with torch.no_grad():
+        out = model.color_encoder(grid, plan)
+    assert TSP.LAUNCHES == before
+    assert all(m.tiles is None for ms in maps.values() for m in ms)
+    assert out.shape == (grid.num, info.feat_dim)
+    assert bool(torch.isfinite(out).all())
+
+
 def test_pcencoder_and_brick_kmaps_match_jax():
     """The whole PCEncoder with JAX params carried over by
     load_jax_params, and the port's L0/L1 kernel maps vs the brick-derived
@@ -178,7 +355,8 @@ def test_pcencoder_and_brick_kmaps_match_jax():
         np.testing.assert_array_equal(
             g.codes.numpy(), np.asarray(plan_j["grids"][lvl].codes)[:g.num])
         np.testing.assert_array_equal(
-            plan["kmaps"][lvl].numpy(), _kmap_np(plan_j["kmaps"][lvl], g.num))
+            plan["maps"]["cube"][lvl].kmap.numpy(),
+            _kmap_np(plan_j["kmaps"][lvl], g.num))
 
     with torch.no_grad():
         sp = model(grid, plan)
