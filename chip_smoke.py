@@ -9,10 +9,12 @@ Phases, each printing what it found:
 
 1. device: torch / CUDA versions, the card's name and power limit;
 2. build: compiles ``gpcr_tpu_torch/csrc/stream_blend.cu``,
-   ``stream_blend_bwd.cu``, ``aligned_blend.cu`` and ``sparse_conv.cu``
+   ``stream_blend_bwd.cu``, ``aligned_blend.cu``, ``sparse_conv.cu`` and
+   ``patch_attn.cu``
    with nvcc for sm_90a (all compilers started together) into
    ``gpcr_tpu_torch/build/`` and prints ptxas' registers, shared memory and
-   spills for C = 3, 9 and 12 and for every sparse conv instantiation,
+   spills for C = 3, 9 and 12 and for every sparse conv and attention
+   instantiation,
    and the stages and shared memory of the chunk rings of the count
    forward and the aligned blend at their main-path shapes;
 3. kernel vs plain: on seeded ~20K-gaussian scenes (512² and 1024², 9 and
@@ -41,7 +43,14 @@ Phases, each printing what it found:
    version, the same bits on a second launch; each conv timed beside its
    bound and its plain version, ``[sparse]`` per kind and level and
    ``[sparse-conv]`` per conv; the U-Net pass on the kernel against the
-   differentiable ops); the
+   differentiable ops); Point Transformer V3 at Pointcept's base widths
+   on that cloud (one ``PCMLRender.render`` of the 12 views with the
+   launch counters reset: 22 attentions and 27 sparse convs per encode;
+   every attention of a pass on ``csrc/patch_attn.cu`` against its plain
+   version and timed per level beside ``F.scaled_dot_product_attention``,
+   ``[ptv3-attn]``; the 5³ stem's five launches and the 22 CPE convs
+   against ``conv_map_plain``, ``[ptv3-conv]``; the pass against the
+   benchmark's reference ``cellbench/reference/ptv3.py``); the
    end-to-end forward entry (``gpcr_tpu_torch/entry.py``, twin of
    ``__graft_entry__.py::entry``: 256 points, ``9 16 16 16 16 16``, one
    32² view) runs on the card with its launch counters at 0 (one serving
@@ -228,6 +237,14 @@ UNET_CONVS = 68
 # in another order, so per output within SPARSE_REL of the sum of the
 # terms' magnitudes (|x| @ |W| + |b| over the same pairs) + SPARSE_ABS
 SPARSE_REL, SPARSE_ABS = 1e-5, 1e-7
+# PTv3: attention blocks per pass (encoder 2 2 2 6 2, decoder 2 2 2 2); the
+# attention kernel against its plain version on outputs of |v| ~ 1 (float32
+# sums in another order, exp2 for exp); the backbone against the benchmark
+# reference (features of rms ~2 through ~20 layers of such differences)
+PTV3_BLOCKS, ATTN_ABS, PTV3_TOL = 22, 1e-5, 1e-4
+# PTv3's sparse convs per encode: the 5³ stem as five launches of 25
+# offsets, and one 3³ CPE conv per block
+PTV3_CONVS = 5 + PTV3_BLOCKS
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -268,7 +285,7 @@ def phase_build():
     from gpcr_tpu_torch.ops import cuda_build
 
     names = ("stream_blend", "stream_blend_bwd", "aligned_blend",
-             "sparse_conv")
+             "sparse_conv", "patch_attn")
     t0 = time.time()
     # one nvcc per source, started together (a thread each: the compiler
     # runs in a child process); a failed build raises out of result()
@@ -285,7 +302,8 @@ def phase_build():
     for name in names:
         lines = cuda_build.BUILD_LOGS.get(name, "").splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and (name == "sparse_conv" or any(
+            if "Compiling entry" in line and (name in (
+                    "sparse_conv", "patch_attn") or any(
                     f"ILi{c}E" in line for c in (3, 9, 12))):
                 for shown in lines[i:i + 4]:
                     log(f"[build] {name}: " + shown.strip())
@@ -637,9 +655,9 @@ def phase_learned_small(torch):
     return worst
 
 
-def _unet_calls(torch, model, grid, plan):
-    """Every ``sparse.conv_map`` call of one inference U-Net forward, per
-    weight: [(cmap, feats, weight, bias, relu)]."""
+def _conv_calls(torch, model, grid, plan):
+    """Every ``sparse.conv_map`` call of one inference forward of the
+    encoder's backbone, per weight: [(cmap, feats, weight, bias, relu)]."""
     from gpcr_tpu_torch.ops import sparse as TSP
 
     calls, real = [], TSP.conv_map
@@ -710,7 +728,7 @@ def phase_sparse_conv(torch):
     torch.cuda.synchronize()
     tiles_s = time.perf_counter() - t0
     level = {id(g): i for i, g in enumerate(plan["grids"])}
-    calls = _unet_calls(torch, model, grid, plan)
+    calls = _conv_calls(torch, model, grid, plan)
     check(len(calls) == UNET_CONVS, f"{len(calls)} convs in one forward")
 
     records, worst = [], 0.0
@@ -802,6 +820,255 @@ def phase_sparse_conv(torch):
                 tiles_s=tiles_s, max_abs_err=worst, per_level={
                     f"{kind}.L{lvl}": agg for (kind, lvl), agg in by.items()},
                 **{f"pass_{k}": v for k, v in total.items()})
+
+
+def phase_ptv3(torch):
+    """Point Transformer V3 (``model_type`` "ptv3", Pointcept's base widths)
+    on the smoke's 800K-point cloud (717,176 voxels) with the benchmark
+    reference's seeded weights, through the cell's entry: the launch
+    counters are reset just before one ``PCMLRender.render`` of 12 circle
+    views at 512² x2 (two encodes), which must launch PTV3_BLOCKS
+    attentions and PTV3_CONVS sparse convs per encode. Then, on the
+    renderer's own grid and cached plan (a plan build timed apart): every
+    attention of one pass held against the plain version (ATTN_ABS) and,
+    once per level, to the same bits on a second launch, timed (CUDA
+    events) beside its bound, its plain version and
+    ``F.scaled_dot_product_attention`` on the same gathered patches
+    (``[ptv3-attn]`` per level); every sparse conv of the pass (the 5³
+    stem's five launches, the 22 CPE convs) against ``conv_map_plain``
+    (SPARSE_REL / SPARSE_ABS) and timed beside its bound
+    (``[ptv3-conv]`` per kind and level); the backbone against the
+    reference (PTV3_TOL). Returns the record for the kernels line."""
+    from cellbench.reference import ptv3 as REF
+    from gpcr_tpu_torch.cli.profile_pcrender import synthetic_cloud
+    from gpcr_tpu_torch.ops import patch_attn as PA
+    from gpcr_tpu_torch.ops import rasterize as R
+    from gpcr_tpu_torch.ops import sparse as TSP
+    from gpcr_tpu_torch.render import renderer as RD
+    from gpcr_tpu_torch.structures.pointcloud import PointCloud
+
+    dev = torch.device("cuda")
+    coords, rgb_np = synthetic_cloud(LEARNED_POINTS, 448, seed=0)
+    xyz = torch.from_numpy(coords).to(dev)
+    rgb = torch.from_numpy(rgb_np).to(dev)
+    s = REF.settings({})
+    w = REF.make_weights(s, 13, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    rdr = RD.PCMLRender(
+        info={"model_type": "ptv3", "scale_factor": 448,
+              "clr_encoder_channels": "9"},
+        voxelized=True, scale_factor=448, device="cuda",
+        config=R.RasterizeConfig(max_dup_per_gaussian=DUP_CAP,
+                                 chunk_size=256, opacity_radius=True))
+    rdr.model.color_encoder.load_state_dict(w)
+    model = rdr.model.color_encoder
+    pcd = PointCloud(xyz_w=xyz[None], rgb=rgb[None])
+    cam = RD.generate_cam({"fov": 45, "width_px": 512, "height_px": 512,
+                           "mode": "circle", "n_imgs": 12, "d": 0, "r": 3,
+                           "center_angles": [90, 0]}, device=dev)
+    timing = {}
+    torch.cuda.synchronize()
+    PA.LAUNCHES = 0
+    TSP.LAUNCHES = 0
+    out = rdr.render(pcd, 448, cam, 45.0, super_sample_rate=2,
+                     background_color=0.0, timing=timing)
+    torch.cuda.synchronize()
+    attn_launches, conv_launches = PA.LAUNCHES, TSP.LAUNCHES
+    for k in ("rgb", "xyz_w", "hitmap", "normal"):
+        check(tuple(out[k].shape) == (1, 12, 512, 512, 3)
+              and bool(torch.isfinite(out[k]).all()),
+              f"the PTv3 render's {k} is not a finite (1, 12, 512, 512, 3)")
+    coverage = float((out["hitmap"] > 0).any(-1).float().mean())
+    log(f"[ptv3] render of 12 views at 512² x2: model time "
+        f"{timing['model_time']:.4f} s, rgb time {timing['rgb_time']:.4f} "
+        f"s, coverage {coverage:.4f}, dup_overflow "
+        f"{timing['dup_overflow']}, attention launches {attn_launches}, "
+        f"sparse conv launches {conv_launches}")
+    check(coverage > 0, "the PTv3 render covers no pixel")
+    check(attn_launches == 2 * PTV3_BLOCKS,
+          f"{attn_launches} attention launches in a request: not "
+          f"{PTV3_BLOCKS} per encode")
+    check(conv_launches == 2 * PTV3_CONVS,
+          f"{conv_launches} sparse conv launches in a request: not "
+          f"{PTV3_CONVS} per encode")
+    del out
+
+    with torch.no_grad():
+        _, grid, plan = rdr.encode(pcd)
+        check(grid.num == LEARNED_VOXELS, f"the grid has {grid.num} voxels")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.build_plan(grid)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+    level = {id(pt): i for i, lv in enumerate(plan["levels"])
+             for pt in lv.patches}
+
+    calls, real = [], PA.patch_attention
+
+    def record(qkv, pt, heads):
+        calls.append((qkv.clone(), pt, heads))
+        return real(qkv, pt, heads)
+
+    PA.patch_attention = record
+    try:
+        with torch.no_grad():
+            model(grid, plan)
+    finally:
+        PA.patch_attention = real
+    check(len(calls) == PTV3_BLOCKS, f"{len(calls)} attentions in a pass")
+
+    records, worst, lib_worst, seen = [], 0.0, 0.0, set()
+    for qkv, pt, heads in calls:
+        lvl = level[id(pt)]
+
+        def kernel():
+            return PA.patch_attention(qkv, pt, heads)
+
+        def plain():
+            return PA.patch_attention_plain(qkv, pt, heads)
+
+        def library():
+            return _sdpa_patches(torch, qkv, pt, heads)
+
+        with torch.no_grad():
+            got, ref = kernel(), plain()
+            err = float((got - ref).abs().max())
+            worst = max(worst, err)
+            check(err <= ATTN_ABS, f"attention at level {lvl}, {heads} "
+                  f"heads disagrees with its plain version: max|d| {err}")
+            if (lvl, heads) not in seen:
+                seen.add((lvl, heads))
+                check(torch.equal(got, kernel()), f"attention at level "
+                      f"{lvl}: another launch gave other bits")
+            lib_worst = max(lib_worst,
+                            float((library() - ref).abs().max()))
+            del got, ref
+            ms = _event_ms(torch, kernel, 5)
+            plain_ms = _event_ms(torch, plain, 1, warmup=0)
+            library_ms = _event_ms(torch, library, 3)
+        d = qkv.shape[1] // (3 * heads)
+        # the queries the function needs (the last patch's shared rows are
+        # the patch before's), K keys each: the two products and the exp
+        ops = (4 * d + 1) * pt.k * pt.n * heads
+        nbytes = 4 * heads * d * (2 * pt.patches * pt.k + 2 * pt.n)
+        records.append(dict(level=lvl, n=pt.n, k=pt.k, patches=pt.patches,
+                            heads=heads, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms,
+                            bound_ms=max(ops / PEAK_FLOPS,
+                                         nbytes / PEAK_BYTES) * 1e3))
+    del calls
+    by = {}
+    for r in records:
+        agg = by.setdefault(r["level"], dict(launches=0, ms=0.0,
+                                             plain_ms=0.0, library_ms=0.0,
+                                             bound_ms=0.0))
+        agg["launches"] += 1
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            agg[k] += r[k]
+    for lvl, agg in sorted(by.items()):
+        log(f"[ptv3-attn] level {lvl} ({plan['levels'][lvl].grid.num} rows):"
+            f" {agg['launches']} launches, kernel {agg['ms']:.4f} ms, bound "
+            f"{agg['bound_ms']:.4f} ms ({agg['bound_ms'] / agg['ms']:.1%}),"
+            f" plain {agg['plain_ms']:.2f} ms, sdpa {agg['library_ms']:.4f}"
+            f" ms")
+
+    # every sparse conv of the pass: the stem's five 25-offset launches
+    # and the CPE's 3³ convs, each against its plain version
+    conv_level = {id(lv.grid): i for i, lv in enumerate(plan["levels"])}
+    stem_ids = {id(m) for m in plan["stem"]}
+    convs = _conv_calls(torch, rdr.model, grid, plan)
+    check(len(convs) == PTV3_CONVS, f"{len(convs)} sparse convs in a pass")
+    conv_by, conv_worst, stem_err = {}, 0.0, 0.0
+    for cmap, feats, wt, b, relu in convs:
+        kind = "stem" if id(cmap) in stem_ids else "cpe"
+        lvl = conv_level[id(cmap.dst)]
+        cin, cout = wt.shape[1], wt.shape[2]
+        t = cmap.tiled_map()
+
+        def kernel():
+            return TSP.conv_map(cmap, [feats], [wt], [b], relu=relu)[0]
+
+        with torch.no_grad():
+            got = kernel()
+            ref = TSP.conv_map_plain(t, feats, wt, b, cmap.dst.num, relu)
+            scale = TSP.conv_map_plain(
+                t, feats.abs(), wt.abs(), None if b is None else b.abs(),
+                cmap.dst.num)
+            err = float((got - ref).abs().max())
+            check(float(((got - ref).abs() - SPARSE_REL * scale
+                         - SPARSE_ABS).max()) <= 0,
+                  f"PTv3 {kind} conv at level {lvl} ({cin} -> {cout}) "
+                  f"disagrees with its plain version: max|d| {err}")
+            del got, ref, scale
+            ms = _event_ms(torch, kernel, 5)
+        conv_worst = max(conv_worst, err)
+        if kind == "stem":
+            stem_err = max(stem_err, err)
+        ops_ms, bytes_ms = _sparse_bound_ms(cmap, cin, cout)
+        agg = conv_by.setdefault(f"{kind}.L{lvl}", dict(
+            convs=0, cin=cin, cout=cout, ms=0.0, bound_ms=0.0, pairs=0,
+            slots=0))
+        agg["convs"] += 1
+        agg["ms"] += ms
+        agg["bound_ms"] += max(ops_ms, bytes_ms)
+        agg["pairs"] += t.pairs
+        agg["slots"] += t.slots
+    del convs
+    for key, agg in conv_by.items():
+        agg["fill"] = agg["pairs"] / agg["slots"]
+        log(f"[ptv3-conv] {key}: {agg['convs']} convs {agg['cin']} -> "
+            f"{agg['cout']}, kernel {agg['ms']:.4f} ms, bound "
+            f"{agg['bound_ms']:.4f} ms ({agg['bound_ms'] / agg['ms']:.1%}),"
+            f" fill {agg['fill']:.3f}")
+
+    with torch.no_grad():
+        pass_ms = _event_ms(torch, lambda: model(grid, plan), 3)
+        got = model.backbone(grid, plan)
+        _, _, want, _ = REF.backbone(xyz, rgb, w, s, 448)
+    pass_err = float((got - want).abs().max())
+    check(pass_err <= PTV3_TOL, f"the PTv3 pass disagrees with the "
+          f"reference: max|d| {pass_err}")
+    total = {k: sum(r[k] for r in records)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    library_ms = sum(r["library_ms"] for r in records)
+    log(f"[ptv3] per pass: {len(records)} attention launches, kernels "
+        f"{total['ms']:.4f} ms (bound {total['bound_ms']:.4f} ms, "
+        f"{total['bound_ms'] / total['ms']:.1%}), plain "
+        f"{total['plain_ms']:.1f} ms, sdpa {library_ms:.4f} ms "
+        f"(max|d| from plain {lib_worst:.3e}); {PTV3_CONVS} sparse convs "
+        f"{sum(a['ms'] for a in conv_by.values()):.4f} ms; PTv3 pass "
+        f"{pass_ms:.4f} ms; plan {plan_s:.3f} s; levels "
+        f"{[lv.grid.num for lv in plan['levels']]}; worst attention max|d|"
+        f" {worst:.3e}, conv {conv_worst:.3e}, stem {stem_err:.3e}, pass "
+        f"against the reference {pass_err:.3e}")
+    return dict(launches=attn_launches, sparse_conv_launches=conv_launches,
+                pass_ms=pass_ms, plan_s=plan_s, max_abs_err=worst,
+                conv_max_abs_err=conv_worst, stem_max_abs_err=stem_err,
+                pass_max_abs_err=pass_err, library_max_abs_err=lib_worst,
+                library="F.scaled_dot_product_attention (efficient or "
+                        "math, float32, TF32 off)",
+                per_level={f"L{lvl}": agg for lvl, agg in by.items()},
+                convs=conv_by,
+                **{f"attn_{k}": v for k, v in total.items()},
+                library_ms=library_ms)
+
+
+def _sdpa_patches(torch, qkv, pt, heads):
+    """The library's attention on ``pt``'s gathered patches: the gather
+    and the unpad of ``patch_attention_plain`` around one
+    ``F.scaled_dot_product_attention`` call in float32 (the memory-
+    efficient backend, else the math one)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    c = qkv.shape[1] // 3
+    d = c // heads
+    t = qkv.index_select(0, pt.pad_rows).view(pt.patches, pt.k, 3, heads, d)
+    q, k, v = t.permute(2, 0, 3, 1, 4).unbind(0)  # (patches, H, K, d)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]):
+        o = F.scaled_dot_product_attention(q, k, v)
+    return o.transpose(1, 2).reshape(-1, c).index_select(0, pt.unpad_slots)
 
 
 def _host_syncs(torch, fn):
@@ -2742,6 +3009,7 @@ def main() -> int:
             phase_learned, torch, B, RS)
         run(phase_learned_small, torch)
         sparse = run(phase_sparse_conv, torch)
+        ptv3 = run(phase_ptv3, torch)
         entry_launches = run(phase_entry, torch, RS, RV, card)
         splats = _learned_splats(torch, ckpt)
         serve, pairs, entries, work = run(phase_timing, torch, splats)
@@ -2781,7 +3049,9 @@ def main() -> int:
     # no single PyTorch call computes any of the four (a sorted,
     # early-terminating alpha blend and its replay), so library_ms is null;
     # nor a sparse convolution over a neighbour map (sparse_conv: its plain
-    # version and the differentiable ops are timed in phase_sparse_conv)
+    # version and the differentiable ops are timed in phase_sparse_conv);
+    # patch_attn's library_ms is F.scaled_dot_product_attention on the same
+    # gathered patches, and its launches those of one PTv3 request
     # entry_launches: kernel 1's launches in one call of the entry's fn;
     # bench_launches: each kernel's launches in phase_bench's entry points;
     # bench_shapes: the kernel at the benchmarks' shapes (kernel 1 at view 0
@@ -2819,6 +3089,9 @@ def main() -> int:
          "source": "gpcr_tpu_torch/csrc/sparse_conv.cu",
          "replaces": None, "launches": sparse_launches, **sparse,
          "library_ms": None},
+        {"name": "patch_attn", "route": "cuda",
+         "source": "gpcr_tpu_torch/csrc/patch_attn.cu", "replaces": None,
+         **ptv3},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """PCEncoder — the splat-parameter prediction head (port of
 ``gpcr_tpu/models/encoder.py``, reference ``models/model_v2.py:238-375``).
 
-Runs the SparseUNet over a quantized coloured voxel grid and splits its
-output into per-voxel Gaussian parameters with the reference activations:
+Runs a backbone over a quantized coloured voxel grid — the SparseUNet
+(``model_type`` "unet") or Point Transformer V3 with its Linear head
+(``model_type`` "ptv3", ``models/ptv3.py``) — and splits its output into
+per-voxel Gaussian parameters with the reference activations:
 rotation = feat + [1,0,0,0]; scale = clamp(feat + 1, min=0); opacity =
 clamp(feat, 0, 1); offset = feat; SH DC = RGB2SH(input rgb) [+ learned
 offset]; normal = feat, optionally L2-normalized; SH AC learned or zeros.
@@ -19,7 +21,10 @@ from torch import nn
 from ..ops import sparse
 from ..utils import trace
 from ..utils.sh import RGB2SH
+from .ptv3 import PointTransformerV3, PTv3Config
 from .unet import SparseUNet
+
+_PTV3_KEYS = {f.name for f in dataclasses.fields(PTv3Config)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,11 +45,27 @@ class PCMLInfo:
     scale_factor: int = 256
     model_type: str = "unet"
     normalize_camera_normal: bool = True
+    # model_type "ptv3": the backbone's widths; the input width is
+    # clr_encoder_channels' first entry
+    ptv3: T.Optional[PTv3Config] = None
+
+    def __post_init__(self):
+        if self.model_type == "ptv3" and self.ptv3 is None:
+            object.__setattr__(self, "ptv3",
+                               PTv3Config(in_channels=self.in_dim))
 
     @staticmethod
     def from_dict(d: dict) -> "PCMLInfo":
-        names = {f.name for f in dataclasses.fields(PCMLInfo)}
-        return PCMLInfo(**{k: v for k, v in d.items() if k in names})
+        """The fields ``d`` gives; for ``model_type`` "ptv3" also
+        PTv3Config's keys at the top level of ``d`` (lists as tuples)."""
+        names = {f.name for f in dataclasses.fields(PCMLInfo)} - {"ptv3"}
+        info = PCMLInfo(**{k: v for k, v in d.items() if k in names})
+        if info.model_type != "ptv3":
+            return info
+        widths = {k: tuple(v) if isinstance(v, list) else v
+                  for k, v in d.items() if k in _PTV3_KEYS}
+        widths["in_channels"] = info.in_dim
+        return dataclasses.replace(info, ptv3=PTv3Config(**widths))
 
     @property
     def channels(self) -> T.List[int]:
@@ -99,11 +120,16 @@ class PCEncoder(nn.Module):
         super().__init__()
         self.info = (info if isinstance(info, PCMLInfo)
                      else PCMLInfo.from_dict(info))
-        if self.info.model_type != "unet":
+        if self.info.model_type == "unet":
+            self.color_encoder = SparseUNet(
+                self.info.channels, self.info.feat_dim, generator=generator)
+        elif self.info.model_type == "ptv3":
+            self.color_encoder = PointTransformerV3(
+                self.info.ptv3, self.info.feat_dim,
+                generator=generator)
+        else:
             raise NotImplementedError(
                 f"Model type {self.info.model_type} not implemented!")
-        self.color_encoder = SparseUNet(self.info.channels, self.info.feat_dim,
-                                        generator=generator)
 
     def build_plan(self, grid: sparse.SparseGrid) -> dict:
         return self.color_encoder.build_plan(grid)
@@ -111,7 +137,7 @@ class PCEncoder(nn.Module):
     def forward(self, grid: sparse.SparseGrid, plan: dict) -> SplatParams:
         """``grid.feats``' LAST 3 channels are the input rgb."""
         info = self.info
-        with trace.span("gpcr.encode.unet"):
+        with trace.span(f"gpcr.encode.{info.model_type}"):
             feat = self.color_encoder(grid, plan)  # (N, F)
         with trace.span("gpcr.encode.head"):
             rgb_in = grid.feats[:, -3:]

@@ -133,7 +133,13 @@ def lookup(codes_sorted: torch.Tensor, queries: torch.Tensor):
 def build_kernel_map(grid: SparseGrid, kernel_size: int) -> torch.Tensor:
     """(N, K³) int64 gather indices into grid.feats; misses -> N. Built
     once per coordinate set and shared by every conv at that level."""
-    offs = _offsets_cube(kernel_size, device=grid.codes.device)
+    return build_offset_map(
+        grid, _offsets_cube(kernel_size, device=grid.codes.device))
+
+
+def build_offset_map(grid: SparseGrid, offs: torch.Tensor) -> torch.Tensor:
+    """(N, K) int64 gather indices into grid.feats for the (K, 3) integer
+    offsets ``offs``; misses -> N."""
     nbr = grid.coords()[:, None, :] + offs[None, :, :]  # (N, K, 3)
     in_range = torch.all((nbr >= 0) & (nbr < GRID_MAX), dim=-1)
     q = pack_coords(nbr.reshape(-1, 3).clamp(0, GRID_MAX - 1)).reshape(
@@ -304,7 +310,8 @@ class ConvMap:
     ``dst``: the arguments of the differentiable ops and, once the kernel
     has run over it, the kernel's ``tiles`` (``tiled_map``).
 
-    kind "cube": 3³ stride 1 (``kmap`` (N, 27), misses N); "down": k2s2,
+    kind "cube": stride 1 over ``kmap``'s offsets ((N, 27) for a 3³ conv,
+    (N, 25) for a slice of PTv3's 5³ stem; misses N); "down": k2s2,
     each parent sums W[octant] @ child (``parent_slot``, ``octant`` of the
     children); "up": generative k2s2, each fine row reads its parent with
     W[its octant] (the same two, of the fine rows)."""

@@ -876,3 +876,124 @@ def test_encoder_on_the_kernel_matches_the_differentiable_ops(cuda, widths):
     tiles = [m.tiles for ms in plan["maps"].values() for m in ms]
     assert all(t is not None for t in tiles)
     assert all(0 < t.pairs <= t.slots for t in tiles)
+
+
+# ---- Point Transformer V3: csrc/patch_attn.cu and the 5^3 stem -------------
+
+# The attention kernel and its plain version (softmax, then two cuBLAS
+# products) sum the same float32 terms in another order and take exp2 of
+# log2-scaled scores for exp: on outputs of |v| ~ 1 they differ by float32
+# rounding, held to ATTN_ABS.
+ATTN_ABS = 1e-5
+
+
+def _patches(dev, n, patch=1024, seed=3):
+    from gpcr_tpu_torch.ops import serialize
+
+    gen = torch.Generator().manual_seed(seed)
+    code = torch.randperm(4 * n, generator=gen)[:n].to(dev)
+    return serialize.patches_of(code, patch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,heads", [(5000, 2), (5000, 32), (3072, 2),
+                                     (700, 4)])
+def test_patch_attn_kernel_matches_plain(cuda, n, heads):
+    """d = 16, K = min(1,024, N): N not a multiple of K (the last patch
+    shares rows with the one before), a multiple, and one patch of 700
+    (a masked last key tile); heads 2 and 32. Same bits on a second
+    launch; every voxel written."""
+    from gpcr_tpu_torch.ops import patch_attn as PA
+
+    pt = _patches(cuda, n)
+    gen = torch.Generator(device=cuda).manual_seed(n + heads)
+    qkv = torch.randn((n, 3 * heads * 16), generator=gen, device=cuda)
+    with torch.no_grad():
+        before = PA.LAUNCHES
+        got = PA.patch_attention(qkv, pt, heads)
+        again = PA.patch_attention(qkv, pt, heads)
+        ref = PA.patch_attention_plain(qkv, pt, heads)
+        torch.cuda.synchronize()
+    assert PA.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    err = float((got - ref).abs().max())
+    assert err <= ATTN_ABS, err
+
+
+def _ptv3_inputs(dev, points):
+    """The benchmark's cloud of ``points`` and the reference's seeded
+    full-width weights."""
+    from cellbench import scene
+    from cellbench.reference import ptv3 as REF
+
+    cloud = {"points": points, "scale_factor": 448, "offset": 512,
+             "grid": 1024, "radius": 0.55, "stretch_y": 1.6, "noise": 0.002}
+    seed = 2**31 + 101
+    xyz, rgb = scene.cloud(cloud, seed, dev)
+    w = REF.make_weights(REF.settings({}), 13, scene.generator(
+        seed, scene.STREAM_WEIGHTS, dev), dev)
+    return xyz, rgb, w
+
+
+def _ptv3_encoder(dev, xyz, rgb, w):
+    from gpcr_tpu_torch.models.encoder import (PCEncoder, PCMLInfo,
+                                               assemble_input_features)
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    info = PCMLInfo.from_dict({"model_type": "ptv3", "scale_factor": 448,
+                               "clr_encoder_channels": "9"})
+    enc = PCEncoder(info, generator=torch.Generator().manual_seed(0))
+    enc = enc.to(dev).eval()
+    enc.color_encoder.load_state_dict(w)
+    grid = TSP.quantize_average(
+        xyz, assemble_input_features(info, xyz, rgb, 512))
+    return enc, grid, enc.build_plan(grid)
+
+
+@pytest.mark.gpu
+def test_ptv3_stem_on_the_card_matches_plain(cuda):
+    """The 125-offset stem, five launches of 25 offsets, against
+    ``conv_map_plain`` over the same maps summed, within the sparse
+    rounding limit."""
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    xyz, rgb, w = _ptv3_inputs(cuda, 100000)
+    enc, grid, plan = _ptv3_encoder(cuda, xyz, rgb, w)
+    kernel = w["embedding.conv.kernel"]
+    got = ref = scale = 0
+    with torch.no_grad():
+        for i, cmap in enumerate(plan["stem"]):
+            k = kernel[25 * i:25 * i + 25]
+            got = got + TSP.conv_map(cmap, [grid.feats], [k], [None])[0]
+            tiles = cmap.tiled_map()
+            ref = ref + TSP.conv_map_plain(tiles, grid.feats, k, None,
+                                           grid.num)
+            scale = scale + TSP.conv_map_plain(tiles, grid.feats.abs(),
+                                               k.abs(), None, grid.num)
+    excess = (got - ref).abs() - (SPARSE_REL * scale + SPARSE_ABS)
+    assert float(excess.max()) <= 0, float((got - ref).abs().max())
+
+
+@pytest.mark.gpu
+def test_ptv3_pass_on_the_card_matches_the_reference(cuda):
+    """One full-width PTv3 pass (Pointcept's base widths) at a ~100K-voxel
+    cloud, every sparse conv and attention on the kernels, against the
+    plain reference on the card: the backbone at 1e-4 on features of rms
+    ~2 (float32 sums in other orders through ~20 layers)."""
+    from cellbench.reference import ptv3 as REF
+    from gpcr_tpu_torch.ops import patch_attn as PA
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    xyz, rgb, w = _ptv3_inputs(cuda, 110000)
+    enc, grid, plan = _ptv3_encoder(cuda, xyz, rgb, w)
+    a0, s0 = PA.LAUNCHES, TSP.LAUNCHES
+    with torch.no_grad():
+        got = enc.color_encoder.backbone(grid, plan)
+        torch.cuda.synchronize()
+        _, _, want, net = REF.backbone(xyz, rgb, w, REF.settings({}), 448)
+    assert grid.num > 90000
+    # 22 blocks: one attention and one CPE conv each, and 5 stem launches
+    assert PA.LAUNCHES - a0 == 22 and TSP.LAUNCHES - s0 == 5 + 22
+    err = float((got - want).abs().max())
+    assert err <= 1e-4, err
