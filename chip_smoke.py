@@ -9,12 +9,13 @@ Phases, each printing what it found:
 
 1. device: torch / CUDA versions, the card's name and power limit;
 2. build: compiles ``gpcr_tpu_torch/csrc/stream_blend.cu``,
-   ``stream_blend_bwd.cu``, ``aligned_blend.cu``, ``sparse_conv.cu`` and
-   ``patch_attn.cu``
-   with nvcc for sm_90a (all compilers started together) into
+   ``stream_blend_bwd.cu``, ``aligned_blend.cu``, ``sparse_conv.cu``,
+   ``patch_attn.cu`` and ``bin_stream.cu``
+   with nvcc for sm_90a (all compilers started together; seconds per
+   library) into
    ``gpcr_tpu_torch/build/`` and prints ptxas' registers, shared memory and
-   spills for C = 3, 9 and 12 and for every sparse conv and attention
-   instantiation,
+   spills for C = 3, 9 and 12 and for every sparse conv, attention and
+   binning kernel,
    and the stages and shared memory of the chunk rings of the count
    forward and the aligned blend at their main-path shapes;
 3. kernel vs plain: on seeded ~20K-gaussian scenes (512² and 1024², 9 and
@@ -36,7 +37,8 @@ Phases, each printing what it found:
    as a JAX-layout .npz and loaded back), on a synthetic 800K-point cloud
    at scale factor 448, 12 circle views at 512² with x2 supersampling; the
    launch counters are reset just before it: the blend's must grow, the
-   sparse conv's by 68 per encode. Then a small
+   sparse conv's by 68 per encode, the binning's by 12 per render (one per
+   view). Then a small
    learned render on the card is held against the CPU path; the U-Net's
    sparse convs on ``csrc/sparse_conv.cu`` at that cloud's shapes (plan
    and kernel maps built and timed; every conv against its plain
@@ -45,7 +47,8 @@ Phases, each printing what it found:
    ``[sparse-conv]`` per conv; the U-Net pass on the kernel against the
    differentiable ops); Point Transformer V3 at Pointcept's base widths
    on that cloud (one ``PCMLRender.render`` of the 12 views with the
-   launch counters reset: 22 attentions and 27 sparse convs per encode;
+   launch counters reset: 22 attentions and 27 sparse convs per encode,
+   12 binnings;
    every attention of a pass on ``csrc/patch_attn.cu`` against its plain
    version and timed per level beside ``F.scaled_dot_product_attention``,
    ``[ptv3-attn]``; the 5³ stem's five launches and the 22 CPE convs
@@ -60,7 +63,14 @@ Phases, each printing what it found:
    pinned to this card (a one-rank dry run); then the
    kernel is timed against its plain version at this path's view-0 shape,
    beside that view's distributions over its tiles of the entries and of
-   the entries walked (``[tile-work]``);
+   the entries walked (``[tile-work]``); the binning kernels
+   (``csrc/bin_stream.cu``) at that view (717,176 splats) and at view 0
+   of the analytic headline (800K points, 2048² inside) against
+   ``bin_sorted_stream_plain``, every output bit-equal, both timed (CUDA
+   events) beside the bound by bytes (``[binning]``); then one request
+   of each benchmark cell through the cell's own program, every view
+   binned on the kernels by ``LAUNCHES_BIN`` and by the request's
+   ``bin_kernel_views`` counter (``[cell-binning]``);
 6. aligned route: ``render_views_fused(use_pallas=True)`` renders the 12
    golden views (50 dB against the golden PNGs, and against the stream
    route's float images of the same run) and view 0 of the learned cell's
@@ -131,7 +141,8 @@ Phases, each printing what it found:
 13. bench: the port's benchmark and demo entry points at their full
    sizes: ``python -m gpcr_tpu_torch.bench`` at its defaults (800K
    points, 1024² x2 = 2048² inside, 16 views per call; no dropped tile
-   or entry), ``scripts.bench_matrix`` c1 / c3a / c4 / c5 (c5 is the
+   or entry; 16 binnings on the kernels per call), ``scripts.bench_matrix``
+   c1 / c3a / c4 / c5 (c5 is the
    first non-square frame, 3840x2160 inside), ``scripts.bench_train_step``
    (3 reps; finite, non-zero gradients; peak memory),
    ``scripts.bench_pcrender --dup_cap 256`` (the CLI in a subprocess, no
@@ -144,11 +155,12 @@ Phases, each printing what it found:
    of the headline, c1, c4 and c5 scenes and the training kernels at the
    demo's view 0 against their plain versions (max 1e-4 / mean 1e-6),
    timed beside their bounds;
-14. one JSON line describing the five kernels (kernel 1 also with its
+14. one JSON line describing the seven kernels (kernel 1 also with its
    launches in the ``--shard tiles`` run and in one entry call; each blend
    kernel with its launches in the bench phase and its times at the
    benchmarks' shapes; the sparse conv with its per-pass times, bounds
-   and fill at the learned cloud), then the result line.
+   and fill at the learned cloud; the binning's ms per view and bound at
+   its two shapes), then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
@@ -242,6 +254,10 @@ SPARSE_REL, SPARSE_ABS = 1e-5, 1e-7
 # sums in another order, exp2 for exp); the backbone against the benchmark
 # reference (features of rms ~2 through ~20 layers of such differences)
 PTV3_BLOCKS, ATTN_ABS, PTV3_TOL = 22, 1e-5, 1e-4
+# the benchmark's cells (cellbench/workloads/) and the seed of their one
+# request each in phase_cell_binning
+CELLS = ("pcml800k.circle12", "ptv3_800k.circle12", "splat800k.orbit16")
+CELL_SEED = 2**31 + 101
 # PTv3's sparse convs per encode: the 5³ stem as five launches of 25
 # offsets, and one 3³ CPE conv per block
 PTV3_CONVS = 5 + PTV3_BLOCKS
@@ -285,25 +301,33 @@ def phase_build():
     from gpcr_tpu_torch.ops import cuda_build
 
     names = ("stream_blend", "stream_blend_bwd", "aligned_blend",
-             "sparse_conv", "patch_attn")
+             "sparse_conv", "patch_attn", "bin_stream")
     t0 = time.time()
+
+    def load(name):
+        t1 = time.time()
+        cuda_build.load(name)
+        return time.time() - t1
+
     # one nvcc per source, started together (a thread each: the compiler
     # runs in a child process); a failed build raises out of result()
     with ThreadPoolExecutor(len(names)) as pool:
-        for job in [pool.submit(cuda_build.load, name) for name in names]:
-            job.result()
+        seconds = [job.result() for job in [pool.submit(load, name)
+                                            for name in names]]
     log(f"[build] {', '.join(names)} built/loaded in {time.time() - t0:.1f} s "
-        f"into {os.path.relpath(cuda_build.BUILD_DIR, HERE)}")
+        f"into {os.path.relpath(cuda_build.BUILD_DIR, HERE)}; each: "
+        + ", ".join(f"{n} {t:.1f} s" for n, t in zip(names, seconds)))
     # ptxas reports four lines per instantiation (entry, properties, stack
     # and spills, registers and shared memory); show C = 3 (the
     # rasterizer-only timing), 9 (analytic) and 12 (learned, training):
-    # the serving and count forwards, the replay backward's two passes
-    # and every instantiation of the sparse convolution (BN, TM, KC)
+    # the serving and count forwards, the replay backward's two passes,
+    # every instantiation of the sparse convolution (BN, TM, KC), and the
+    # binning's four kernels beside the CUB radix sort's
     for name in names:
         lines = cuda_build.BUILD_LOGS.get(name, "").splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry" in line and (name in (
-                    "sparse_conv", "patch_attn") or any(
+                    "sparse_conv", "patch_attn", "bin_stream") or any(
                     f"ILi{c}E" in line for c in (3, 9, 12))):
                 for shown in lines[i:i + 4]:
                     log(f"[build] {name}: " + shown.strip())
@@ -586,7 +610,7 @@ def phase_learned(torch, B, RS):
 
     root, ckpt = _learned_inputs(torch)
     torch.cuda.reset_peak_memory_stats()
-    RS.LAUNCHES = 0
+    RS.LAUNCHES = RS.LAUNCHES_BIN = 0
     TSP.LAUNCHES = 0
     res = B.main([
         "pcrender", "--ckpt", ckpt, "--id_list", "0519",
@@ -599,6 +623,7 @@ def phase_learned(torch, B, RS):
         "--dup_cap", str(DUP_CAP),
     ])
     launches = RS.LAUNCHES
+    bin_launches = RS.LAUNCHES_BIN
     sparse_launches = TSP.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     out, timing = res["0519"]
@@ -612,10 +637,16 @@ def phase_learned(torch, B, RS):
         f"{timing['rgb_time']:.4f} s, {timing['rgb_time'] / 12 * 1e3:.2f} "
         f"ms/view, peak memory {peak / 2**30:.3f} GiB, coverage "
         f"{coverage:.4f}, dup_overflow {timing['dup_overflow']}, kernel "
-        f"launches {launches}, sparse conv launches {sparse_launches}")
+        f"launches {launches}, binning launches {bin_launches}, sparse conv "
+        f"launches {sparse_launches}")
     check(coverage > 0, "learned render covers no pixel")
     check(timing["dup_overflow"] == 0, "learned render dropped entries")
     check(launches > 0, "the learned path never launched the blend kernel")
+    # the CLI renders its 12 views twice (a warm and a timed run), each view
+    # binned once on the kernels
+    check(bin_launches == launches == 2 * 12,
+          f"{bin_launches} binning and {launches} blend launches: not 12 per "
+          "render of the ring")
     # every conv of every encode (two per render) on the kernel
     check(sparse_launches > 0 and sparse_launches % UNET_CONVS == 0,
           f"{sparse_launches} sparse conv launches: not {UNET_CONVS} per "
@@ -1348,6 +1379,149 @@ def phase_timing(torch, sp):
     _log_tile_work("learned view 0", starts, order, cnt, config.chunk_size,
                    forward=True)
     return serve, pairs, stream.shape[0], (cnt, starts[1:] - starts[:-1])
+
+
+def _bin_bound(entries, kept, ncols, bits):
+    """(bound_ms, bytes) of one view's binning on this data, at the HBM
+    bandwidth: the emit's (tile, rank) pairs written once (8 B per
+    entry), each radix sort pass reading and writing them (CUB's 8-bit
+    digits: ceil(bits / 8) passes), the stream rows written once, the
+    kept entries' rank (4 B) and gidx_s (8 B) read once. Left out (so the
+    bound is lower than the least time): the presort of the n depths, the
+    rects the count and emit read, and the splat fields the rows
+    gather."""
+    passes = -(-bits // 8)
+    nbytes = (entries * 8 + passes * entries * 16 + kept * ncols * 4
+              + kept * 12)
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def _time_binning(torch, tag, prep, nt, gx, config):
+    """``bin_sorted_stream`` on ``csrc/bin_stream.cu`` against
+    ``bin_sorted_stream_plain`` on one view: every output bit-equal (the
+    stream, starts, overflow, sorted ranks and presort permutation), then
+    both timed in turns plain / kernel / kernel / plain (CUDA events over
+    the whole binning, its host read of the emit size included), beside the
+    bound by bytes. Returns the record for the kernels line."""
+    from gpcr_tpu_torch.ops import rasterize as R
+    from gpcr_tpu_torch.ops import rasterize_stream as RS
+
+    with torch.no_grad():
+        before = RS.LAUNCHES_BIN
+        got = RS.bin_sorted_stream(prep, nt, gx, config, return_entries=True)
+        torch.cuda.synchronize()
+        check(RS.LAUNCHES_BIN == before + 1,
+              f"{tag}: the binning did not run on the kernels")
+        ref = RS.bin_sorted_stream_plain(prep, nt, gx, config,
+                                         return_entries=True)
+        check(bool(torch.equal(got[0].view(torch.int32),
+                               ref[0].view(torch.int32))),
+              f"{tag}: the kernels' stream differs from the plain version's")
+        for name, g, r in zip(("starts", "overflow", "sorted ranks",
+                               "presort"), got[1:], ref[1:]):
+            check(g.dtype == r.dtype and bool(torch.equal(g, r)),
+                  f"{tag}: the kernels' {name} differ from the plain "
+                  "version's")
+        entries = int(R.entry_count(prep, config))
+        kept, ncols = got[0].shape
+        del got, ref
+        p1 = _event_ms(torch, lambda: RS.bin_sorted_stream_plain(
+            prep, nt, gx, config), 3)
+        k1 = _event_ms(torch, lambda: RS.bin_sorted_stream(
+            prep, nt, gx, config), 20)
+        k2 = _event_ms(torch, lambda: RS.bin_sorted_stream(
+            prep, nt, gx, config), 20)
+        p2 = _event_ms(torch, lambda: RS.bin_sorted_stream_plain(
+            prep, nt, gx, config), 3)
+        # device time per op of one kernel binning (torch.profiler, 5 calls)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                RS.bin_sorted_stream(prep, nt, gx, config)
+            torch.cuda.synchronize()
+    ops = sorted(((e.key[:48], e.device_time_total / 5e3)
+                  for e in prof.key_averages() if e.device_time_total > 0),
+                 key=lambda kv: -kv[1])
+    log(f"[binning] {tag}: device ms per op of one kernel binning, "
+        f"{sum(ms for _, ms in ops):.4f} in all: "
+        + "; ".join(f"{k} {ms:.4f}" for k, ms in ops))
+    bits = nt.bit_length()  # the sort's key bits, as the wrapper takes
+    bound_ms, nbytes = _bin_bound(entries, kept, ncols, bits)
+    log(f"[binning] {tag}: {prep.depth.shape[0]} splats, {entries} entries "
+        f"emitted, {kept} kept, rows of {ncols} floats, {nt} tiles "
+        f"({bits} key bits): kernels {k1:.4f} / {k2:.4f} ms, plain "
+        f"{p1:.4f} / {p2:.4f} ms (CUDA events); bit-equal; bound "
+        f"{bound_ms:.4f} ms by bytes ({nbytes} B at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound_ms,
+                bound_by="bytes", splats=prep.depth.shape[0],
+                entries=entries, kept=kept, tiles=nt, key_bits=bits)
+
+
+def phase_binning(torch, sp):
+    """The binning kernels at the learned view 0 (the 717,176-voxel cloud's
+    splats, 4,096 tiles, dup cap 256) and at view 0 of the analytic
+    headline (800K points, 2048² inside: 16,384 tiles, dup cap 4, k_budget
+    1.8M): ``_time_binning`` at each."""
+    from gpcr_tpu_torch.scripts import bench_matrix
+    from gpcr_tpu_torch.utils.blend_inputs import bench_view0_prep, view0_prep
+
+    prep, _, res = view0_prep(sp)
+    check(prep.depth.shape[0] == LEARNED_VOXELS,
+          f"the learned view 0 has {prep.depth.shape[0]} splats")
+    gx = -(-res // 16)
+    learned = _time_binning(torch, "learned view 0", prep, gx * gx, gx,
+                            sp["config"])
+    del prep
+    coords, rgb = bench_matrix.make_cloud(800_000, 448)
+    scene = bench_matrix.make_scene(coords, rgb, 448, 1024, 1024, 5)
+    config = bench_matrix.raster_config(4, 1_800_000, 6144)
+    prep, nt, gx, _, config = bench_view0_prep(scene, config)
+    analytic = _time_binning(torch, "analytic headline view 0", prep, nt, gx,
+                             config)
+    return {"learned_view0": learned, "analytic_view0": analytic}
+
+
+def phase_cell_binning(torch, RS):
+    """One request of each benchmark cell through the cell's own program
+    (``cellbench``'s seeded inputs, program and cameras, after one warm
+    request), recorded under ``trace.recording()``: every view of the
+    request binned on ``csrc/bin_stream.cu``, counted alike by
+    ``LAUNCHES_BIN`` and by the request's ``bin_kernel_views``. Returns
+    the views binned on the kernels per request, per cell."""
+    from cellbench import harness, scene, systems
+    from gpcr_tpu_torch.utils import trace
+
+    dev = torch.device("cuda")
+    got = {}
+    for name in CELLS:
+        cell = harness.load_cell(name)
+        cfg, traffic = cell["config"], cell["traffic"]
+        system = systems.load(cfg["renderer"])
+        inputs = system.make_inputs(cfg, CELL_SEED, dev)
+        prog = system.Program(cfg, traffic, inputs, dev)
+        cams = scene.Cameras(traffic, CELL_SEED, dev)
+        with harness.quiet():
+            prog(cams.warm(0), {})
+            torch.cuda.synchronize()
+            before = RS.LAUNCHES_BIN
+            with trace.recording() as rec:
+                prog(cams.request(0), {})
+                torch.cuda.synchronize()
+        launches = RS.LAUNCHES_BIN - before
+        counted = {r: c["bin_kernel_views"] for r, c in rec.counters.items()
+                   if "bin_kernel_views" in c}
+        log(f"[cell-binning] {name}: a request of {traffic['views']} views "
+            f"binned {launches} views on the kernels (LAUNCHES_BIN), "
+            f"bin_kernel_views by request {counted}")
+        check(launches == traffic["views"] and counted == {0: launches},
+              f"{name}: {launches} kernel binnings and bin_kernel_views "
+              f"{counted} in a request of {traffic['views']} views")
+        got[name] = launches
+        del prog, inputs
+        torch.cuda.empty_cache()
+    return got
 
 
 # --------------------------------------------------------------------------
@@ -2814,7 +2988,8 @@ def phase_bench(torch, RS, RV):
     Then the serving kernel at view 0 of the headline, c1, c4 and c5
     scenes and the two training kernels at the demo's view 0 are held
     against their plain versions and timed. Returns (launches per kernel,
-    kernel 1's records per shape, kernels 2-3's at the demo shape)."""
+    kernel 1's records per shape, kernels 2-3's at the demo shape, the
+    headline's views binned on the kernels)."""
     from gpcr_tpu_torch import bench
     from gpcr_tpu_torch.scripts import (bench_matrix, bench_pcrender,
                                         bench_train_step, train_demo)
@@ -2824,16 +2999,21 @@ def phase_bench(torch, RS, RV):
 
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     card = phase_device(torch)
+    RS.LAUNCHES_BIN = 0
     head, got = _counted(RS, RV, counts, lambda: bench.main([]))
+    bin_launches = RS.LAUNCHES_BIN
     log(f"[bench] headline: {head['ms']:.4f} ms/frame median, per call "
         f"{head['times_ms']}, nonempty_tiles {head['nonempty_tiles']}, "
         f"dropped tiles / entries {head['dropped_tiles']} / "
         f"{head['dropped_entries']}, render_dup_overflow "
         f"{head['render_dup_overflow']}, tile_bin overflow "
-        f"{head['overflow']}; serving launches {got[0]}; {card}")
+        f"{head['overflow']}; serving launches {got[0]}, binning launches "
+        f"{bin_launches}; {card}")
     check(math.isfinite(head["ms"]), "bench gave no finite ms per frame")
     check(got[0] == 6 * 16, f"bench launched the serving kernel {got[0]} "
           "times, not 16 views x (1 warm + 5 timed calls)")
+    check(bin_launches == 6 * 16, f"bench binned {bin_launches} views on the "
+          "kernels, not 16 per call of 16 views")
     check(head["dropped_tiles"] == head["dropped_entries"]
           == head["render_dup_overflow"] == head["overflow"] == 0,
           "the headline frame dropped entries")
@@ -2956,7 +3136,7 @@ def phase_bench(torch, RS, RV):
     log("[bench] launches of the entry points (bench_pcrender's CLI "
         "subprocess not counted): " + json.dumps(counts))
     log("[bench] traces: " + json.dumps(traces))
-    return counts, shapes, demo_kernels
+    return counts, shapes, demo_kernels, bin_launches
 
 
 def main() -> int:
@@ -3013,6 +3193,8 @@ def main() -> int:
         entry_launches = run(phase_entry, torch, RS, RV, card)
         splats = _learned_splats(torch, ckpt)
         serve, pairs, entries, work = run(phase_timing, torch, splats)
+        binning = run(phase_binning, torch, splats)
+        cell_bins = run(phase_cell_binning, torch, RS)
         aligned_launches = run(phase_aligned_route, torch, B, RA, splats)
         aligned = run(phase_timing_aligned, torch, splats, pairs, entries,
                       work)
@@ -3028,7 +3210,8 @@ def main() -> int:
         k_raster = run(phase_timing_raster, torch)
         windows, windowed_launches = run(phase_sharded, torch, B, RS, ckpt,
                                          train)
-        bench, serve_shapes, k_demo = run(phase_bench, torch, RS, RV)
+        bench, serve_shapes, k_demo, bench_bins = run(phase_bench, torch,
+                                                      RS, RV)
         # the port imports nothing of the JAX package
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "gpcr_tpu", "scripts"))
@@ -3051,7 +3234,10 @@ def main() -> int:
     # nor a sparse convolution over a neighbour map (sparse_conv: its plain
     # version and the differentiable ops are timed in phase_sparse_conv);
     # patch_attn's library_ms is F.scaled_dot_product_attention on the same
-    # gathered patches, and its launches those of one PTv3 request
+    # gathered patches, and its launches those of one PTv3 request;
+    # bin_stream's launches are the views binned on the kernels in one
+    # request of each cell (phase_cell_binning), its bench_launches those
+    # of phase_bench's headline run, its times per view at two shapes
     # entry_launches: kernel 1's launches in one call of the entry's fn;
     # bench_launches: each kernel's launches in phase_bench's entry points;
     # bench_shapes: the kernel at the benchmarks' shapes (kernel 1 at view 0
@@ -3092,6 +3278,10 @@ def main() -> int:
         {"name": "patch_attn", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/patch_attn.cu", "replaces": None,
          **ptv3},
+        {"name": "bin_stream", "route": "cuda",
+         "source": "gpcr_tpu_torch/csrc/bin_stream.cu", "replaces": None,
+         "launches": cell_bins, "bench_launches": bench_bins,
+         **binning, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,9 +41,9 @@ host where a size depends on the data: ``torch.unique`` in
 first sparse-conv launch over each of the plan's 10 maps (which reads
 the map's pair and slot counts, ``ops/sparse.py::tile_map``; ``fn``
 builds a plan per call) and the emit size of the binning
-(``ops/rasterize.py::emit_tiles``). One call on an H100 waited 16 times,
-10 of them at the maps (``chip_smoke.py``'s ``phase_entry`` counts them
-by line). A ``torch.compile`` or CUDA-graph capture of ``fn`` would break
+(``ops/rasterize_stream.py::bin_sorted_stream``). One call on an H100
+waited 16 times, 10 of them at the maps (``chip_smoke.py``'s
+``phase_entry`` counts them by line). A ``torch.compile`` or CUDA-graph capture of ``fn`` would break
 at each of them; this module takes neither.
 
     python -m gpcr_tpu_torch.entry [--device cpu]

@@ -2,8 +2,8 @@
 kernel wrapper, and its epilogue (port of ``gpcr_tpu/ops/rasterize_stream.py``
 default path, plus ``rasterize_pallas.assemble_tiles``).
 
-Binning is plain PyTorch (in JAX it is XLA sorts and gathers outside the
-Pallas kernel):
+Binning (``bin_sorted_stream``; in JAX it is XLA sorts and gathers outside
+the Pallas kernel):
 
 1. presort gaussians by (depth, index) — a stable sort of depth with
    invalid gaussians keyed +inf, which is ``lax.sort`` over
@@ -12,21 +12,29 @@ Pallas kernel):
    min(area, max_dup) tiles of its rect, row-major; the rest count as
    overflow. Only live entries are emitted: dynamic shapes need no
    sentinel padding;
-3. one sort of the unique int64 key tile * (n + 1) + rank — the
-   (tile, depth-rank) order of the reference's 64-bit radix sort (int32
-   overflows: 4096 tiles x 800K ranks > 2^31);
-4. tile starts by ``searchsorted``;
-5. one gather of the packed rows [x, y, conic(3), op, depth, 0, feat(C)]
-   in sorted-entry order.
+3. the entries in (tile, depth-rank) order, the order of the reference's
+   radix sort;
+4. tile starts;
+5. the rows [x, y, conic(3), op, depth, 0, feat(C)] in sorted-entry order.
+
+For CUDA tensors steps 2-5 run on ``csrc/bin_stream.cu``: since the emit
+walks the splats in rank order, a stable sort of the tile ids alone, over
+bit_length(tiles) bits, gives step 3's order; the rows are written
+straight from the preprocess outputs. ``bin_sorted_stream_plain``, which
+CPU tensors run, sorts one unique int64 key tile * (n + 1) + rank (int32
+overflows: 4096 tiles x 800K ranks > 2^31), finds the starts by
+``searchsorted`` and gathers a packed (n, 8 + C) table; both give the same
+bits.
 
 The blend (``blend_tiles``) launches the CUDA kernel
 ``csrc/stream_blend.cu`` for CUDA tensors and runs ``blend_tiles_plain``
 for CPU tensors. Both of its kernels skip, per warp of 8x4 pixels, the
 entries whose alpha cannot reach the warp's pixels; ``block_mask_plain``
-is that predicate in plain PyTorch. It never falls back: a CUDA run that
-cannot build or launch the kernel raises. With ``with_contrib`` (the training forward,
-``ops/rasterize_stream_vjp.py``) both also return the per-pixel
-contributor count the replay backward needs.
+is that predicate in plain PyTorch. Neither binning nor blend falls back:
+a CUDA run that cannot build or launch a kernel raises. With
+``with_contrib`` (the training forward, ``ops/rasterize_stream_vjp.py``)
+both blends also return the per-pixel contributor count the replay
+backward needs.
 """
 
 from __future__ import annotations
@@ -49,6 +57,9 @@ STREAM_FEAT_COL = 8
 LAUNCHES = 0
 # the same for the kernel's contributor-count instantiation (training)
 LAUNCHES_CONTRIB = 0
+# views binned on csrc/bin_stream.cu in this process (one per
+# ``_bin_sorted_stream_cuda`` call that reached the row kernel)
+LAUNCHES_BIN = 0
 
 
 def _round_up(x, m):
@@ -68,29 +79,52 @@ def bin_sorted_stream(
     return_entries: bool = False,
     tile_window=None,
 ):
-    """Depth presort -> rank emit -> one (tile, rank) sort -> stream gather.
+    """Depth presort -> rank emit -> (tile, rank) order -> tile starts ->
+    stream rows.
 
     Returns (stream (E, 8 + C) f32, starts (num_tiles + 1,) i32,
     overflow () i64) with E the number of kept entries. ``overflow``
     counts entries never emitted (dup cap) or cut by a positive
     ``k_budget``. With ``return_entries`` also returns the sorted ranks
-    (E,) and the presort permutation (n,) (rank -> original index).
+    (E,) i64 and the presort permutation (n,) (rank -> original index).
 
     ``tile_window=(base, count)`` bins only tiles [base, base + count), in
     LOCAL tile ids (the per-window binning of the tile-sharded path,
     ``parallel/render.py``): the emit is the full one, entries of other
-    tiles are dropped before the sort, ``starts`` has count + 1 rows, and
+    tiles are dropped before the cut, ``starts`` has count + 1 rows, and
     ``k_budget`` cuts and counts LOCAL entries only (the dup-cap overflow
     stays the whole frame's, as in ``gpcr_tpu``).
+
+    CUDA tensors run ``csrc/bin_stream.cu`` (one host read of the emit
+    size, and with a window one more of the window's size), CPU tensors
+    ``bin_sorted_stream_plain``; the two give the same bits.
     """
+    if prep.depth.is_cuda:
+        return _bin_sorted_stream_cuda(prep, num_tiles, grid_x, config,
+                                       return_entries, tile_window)
+    if prep.depth.device.type != "cpu":
+        raise ValueError(f"no binning for device {prep.depth.device}")
+    return bin_sorted_stream_plain(prep, num_tiles, grid_x, config,
+                                   return_entries, tile_window)
+
+
+def bin_sorted_stream_plain(
+    prep: R.Preprocessed,
+    num_tiles: int,
+    grid_x: int,
+    config: R.RasterizeConfig,
+    return_entries: bool = False,
+    tile_window=None,
+):
+    """The plain PyTorch version of ``bin_sorted_stream`` (any device):
+    ``emit_tiles``, one sort of the unique int64 key tile * (n + 1) +
+    rank, ``searchsorted`` and a gather of the packed rows."""
     n = prep.depth.shape[0]
     dev = prep.depth.device
     cap = config.max_dup_per_gaussian
 
     # 1. presort
-    depth_key = torch.where(
-        prep.valid, prep.depth, torch.full_like(prep.depth, float("inf")))
-    _, gidx_s = torch.sort(depth_key, stable=True)
+    gidx_s = _presort(prep)
 
     # 2. rank emit
     rank, tile, overflow = R.emit_tiles(
@@ -106,11 +140,10 @@ def bin_sorted_stream(
     sorted_tile = key_s // (n + 1)
     sorted_rank = key_s - sorted_tile * (n + 1)
 
-    kb = config.k_budget
-    if kb is not None and kb > 0:
+    kb = _budget(config, n)
+    if kb >= 0:
         # keep the first kb sorted entries (the JAX dense-emit semantics:
         # the tail of the last tiles is dropped) and count the rest
-        kb = min(_round_up(kb, config.chunk_size), n * cap)
         overflow = overflow + max(total - kb, 0)
         sorted_tile = sorted_tile[:kb]
         sorted_rank = sorted_rank[:kb]
@@ -136,6 +169,137 @@ def bin_sorted_stream(
     if return_entries:
         return stream, starts, overflow, sorted_rank, gidx_s
     return stream, starts, overflow
+
+
+def _presort(prep: R.Preprocessed) -> torch.Tensor:
+    """Ranks -> splats: a stable sort of the depths, invalid ones last."""
+    depth_key = torch.where(
+        prep.valid, prep.depth, torch.full_like(prep.depth, float("inf")))
+    return torch.sort(depth_key, stable=True)[1]
+
+
+def _budget(config: R.RasterizeConfig, n: int) -> int:
+    """Sorted entries kept by a positive ``k_budget`` (rounded up to whole
+    chunks, at most every entry the emit can make), or -1 for no cut."""
+    kb = config.k_budget
+    if kb is None or kb <= 0:
+        return -1
+    return min(_round_up(kb, config.chunk_size),
+               n * config.max_dup_per_gaussian)
+
+
+def _bin_sorted_stream_cuda(prep: R.Preprocessed, num_tiles: int,
+                            grid_x: int, config: R.RasterizeConfig,
+                            return_entries: bool = False, tile_window=None):
+    """``bin_sorted_stream`` on ``csrc/bin_stream.cu``, on the current CUDA
+    stream."""
+    global LAUNCHES_BIN
+    n = prep.depth.shape[0]
+    dev = prep.depth.device
+    cap = config.max_dup_per_gaussian
+    base, count = (0, num_tiles) if tile_window is None else tile_window
+    if cap < 0 or count < 1 or n >= 2**31:
+        raise ValueError(f"binning of {n} splats, dup cap {cap}, into "
+                         f"{count} tiles")
+    # the kernels read raw pointers: every field one row per splat, on dev
+    channels = prep.features.shape[-1]
+    for name, t, shape in (
+            ("valid", prep.valid, (n,)), ("rect", prep.rect, (n, 4)),
+            ("mean2d", prep.mean2d, (n, 2)), ("conic", prep.conic, (n, 3)),
+            ("opacity", prep.opacity, (n,)),
+            ("features", prep.features, (n, channels))):
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device}, not "
+                             f"{shape} on {dev}")
+    lib = _bin_stream_lib()
+    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def check(rc, what):
+        if rc != 0:
+            msg = lib.gpcr_bin_error_string(rc).decode()
+            raise RuntimeError(f"bin_stream {what} failed: {msg} ({rc})")
+
+    gidx_s = _presort(prep)
+    rect = prep.rect.to(torch.int32).contiguous()
+    valid = prep.valid.to(torch.bool).contiguous()
+    srcs = [t.to(torch.float32) for t in (prep.mean2d, prep.conic,
+                                          prep.opacity, prep.depth,
+                                          prep.features)]
+    strides = (ctypes.c_longlong * 8)(*(d for t in srcs for d in t.stride()))
+    starts = torch.empty(count + 1, dtype=torch.int32, device=dev)
+    kb = _budget(config, n)
+    area = torch.empty(n, dtype=torch.int64, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    check(lib.gpcr_bin_count(rect.data_ptr(), valid.data_ptr(),
+                             gidx_s.data_ptr(), n, cap, area.data_ptr(),
+                             overflow.data_ptr(), cuda_stream), "count")
+    incl = torch.cumsum(area, 0)
+    total = int(incl[-1]) if n else 0  # the one host read: sizes the emit
+    if total >= 2**31:
+        raise ValueError(f"{total} entries: the kernels index with int32")
+
+    # keys: tiles 0 .. count - 1 and a window's sentinel bucket ``count``
+    # (13 bits at 4,096 tiles, 15 at 16,384: two 8-bit radix passes)
+    bits = count.bit_length()
+    # the sort's double buffer: (keys, values) x 2
+    keys = [torch.empty(total, dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    vals = [torch.empty(total, dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    temp_bytes = ctypes.c_size_t(0)
+    if total:
+        check(lib.gpcr_bin_sort_temp_bytes(total, bits,
+                                           ctypes.byref(temp_bytes)),
+              "sort size query")
+    temp = torch.empty(temp_bytes.value, dtype=torch.uint8, device=dev)
+    selector = ctypes.c_int(0)
+    check(lib.gpcr_bin_sort(
+        rect.data_ptr(), gidx_s.data_ptr(), incl.data_ptr(), n, grid_x, base,
+        count, keys[0].data_ptr(), vals[0].data_ptr(), keys[1].data_ptr(),
+        vals[1].data_ptr(), total, bits, temp.data_ptr(), temp_bytes.value,
+        kb, starts.data_ptr(), overflow.data_ptr(), ctypes.byref(selector),
+        cuda_stream), "sort")
+    if tile_window is None:
+        kept = total if kb < 0 else min(total, kb)
+    else:
+        kept = int(starts[count])  # the window's entries, after the cut
+
+    ranks = vals[selector.value][:kept]
+    stream = torch.empty((kept, STREAM_FEAT_COL + channels),
+                         dtype=torch.float32, device=dev)
+    check(lib.gpcr_bin_rows(
+        ranks.data_ptr(), gidx_s.data_ptr(), kept, channels,
+        *(t.data_ptr() for t in srcs), strides, stream.data_ptr(),
+        cuda_stream), "rows")
+    LAUNCHES_BIN += 1
+    trace.count("bin_kernel_views", 1)
+    if return_entries:
+        return stream, starts, overflow, ranks.long(), gidx_s
+    return stream, starts, overflow
+
+
+def _bin_stream_lib():
+    lib = cuda_build.load("bin_stream")
+    if not getattr(lib, "_gpcr_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gpcr_bin_count.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
+        lib.gpcr_bin_count.restype = ci
+        lib.gpcr_bin_sort_temp_bytes.argtypes = [
+            ci, ci, ctypes.POINTER(ctypes.c_size_t)]
+        lib.gpcr_bin_sort_temp_bytes.restype = ci
+        lib.gpcr_bin_sort.argtypes = [
+            vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, vp,
+            ctypes.c_size_t, ctypes.c_longlong, vp, vp, ctypes.POINTER(ci),
+            vp]
+        lib.gpcr_bin_sort.restype = ci
+        lib.gpcr_bin_rows.argtypes = [
+            vp, vp, ci, ci, vp, vp, vp, vp, vp,
+            ctypes.POINTER(ctypes.c_longlong), vp, vp]
+        lib.gpcr_bin_rows.restype = ci
+        lib.gpcr_bin_error_string.argtypes = [ci]
+        lib.gpcr_bin_error_string.restype = ctypes.c_char_p
+        lib._gpcr_typed = True
+    return lib
 
 
 # --------------------------------------------------------------------------

@@ -12,8 +12,8 @@ from a seed, and the per-tile work they give the kernels:
 - aligned view 0: the learned view 0's entries in the chunk-aligned
   layout of the aligned all-tiles blend (``aligned_view0``);
 - benchmark view 0: view 0 of a ``scripts/bench_matrix`` scene (the
-  headline, c1 / c3a / c4 / c5) as the serving blend gets it
-  (``bench_view0_stream``).
+  headline, c1 / c3a / c4 / c5) as the binning (``bench_view0_prep``) and
+  the serving blend (``bench_view0_stream``) get it.
 
 ``chip_smoke.py`` and ``cli/profile_blend.py`` build their shapes here.
 """
@@ -178,13 +178,11 @@ def analytic_view0(n: int, device):
         return (*bin_view(prep, settings.image_height, config), 3, config)
 
 
-def bench_view0_stream(scene: dict, config: R.RasterizeConfig):
-    """The serving blend's inputs at view 0 of a benchmark scene
-    (``scripts/bench_matrix.make_scene``), built as ``render_views_fused``
-    builds them: fused features without normals, downscale 2 when the
-    output is half the raster size, the stream binning and
-    ``render_order``'s tiles. Returns (stream, starts, order, num_tiles,
-    grid_x, channels, config, overflow)."""
+def bench_view0_prep(scene: dict, config: R.RasterizeConfig):
+    """View 0 of a benchmark scene (``scripts/bench_matrix.make_scene``),
+    preprocessed as ``render_views_fused`` preprocesses it: fused features
+    without normals, downscale 2 when the output is half the raster size.
+    Returns (prep, num_tiles, grid_x, channels, config)."""
     rp = scene["rp"]
     H, W = rp["height"], rp["width"]
     if H == 2 * scene["out_h"] and W == 2 * scene["out_w"]:
@@ -200,12 +198,23 @@ def bench_view0_stream(scene: dict, config: R.RasterizeConfig):
                             scales=scene["scales"],
                             rotations=scene["rotations"],
                             colors_precomp=feats, valid_mask=scene["valid"])
-        grid_x = -(-W // config.tile_x)
-        num_tiles = grid_x * -(-H // config.tile_y)
+    grid_x = -(-W // config.tile_x)
+    num_tiles = grid_x * -(-H // config.tile_y)
+    return prep, num_tiles, grid_x, feats.shape[1], config
+
+
+def bench_view0_stream(scene: dict, config: R.RasterizeConfig):
+    """The serving blend's inputs at view 0 of a benchmark scene, built as
+    ``render_views_fused`` builds them: ``bench_view0_prep``, the stream
+    binning and ``render_order``'s tiles. Returns (stream, starts, order,
+    num_tiles, grid_x, channels, config, overflow)."""
+    prep, num_tiles, grid_x, channels, config = bench_view0_prep(scene,
+                                                                 config)
+    with torch.no_grad():
         stream, starts, overflow = RS.bin_sorted_stream(prep, num_tiles,
                                                         grid_x, config)
         order, overflow = RS.render_order(starts, overflow, num_tiles, config)
-    return (stream, starts, order, num_tiles, grid_x, feats.shape[1], config,
+    return (stream, starts, order, num_tiles, grid_x, channels, config,
             int(overflow))
 
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card (``gpu`` marker): the serving
 stream blend (with its warp-level culling), the contributor-count
 forward and the aligned all-tiles blend (both walking a chunk ring), the
-replay backward (tiles split into segments); the U-Net's sparse
-convolution (``csrc/sparse_conv.cu``, its own tolerance below); and the
+replay backward (tiles split into segments); the binning kernels
+(``csrc/bin_stream.cu``, bit-equal to ``bin_sorted_stream_plain``); the
+U-Net's sparse convolution (``csrc/sparse_conv.cu``, its own tolerance
+below); and the
 data path's torch
 ops on the card against the CPU (voxel downsampling, outlier removal,
 RGBD unprojection, segment max / min, the surfel z-buffer, the k nearest
@@ -206,6 +208,107 @@ def test_windowed_kernel_matches_plain(cuda, downscale, channels):
     assert filled >= 3  # the scene spans the windows
     assert torch.equal(torch.cat([p[0] for p in parts])[:nt], acc)
     assert torch.equal(torch.cat([p[1] for p in parts])[:nt], t)
+
+
+# binning on csrc/bin_stream.cu against bin_sorted_stream_plain: (dup cap,
+# raster side, k_budget, tile window, share of splats kept valid). 128 px
+# is 64 tiles; 1024 and 2048 px the learned and the analytic cells' 4,096
+# and 16,384; 200 px an odd 169; at 320 px ~150 of the 3,000 splats span
+# more than 256 tiles.
+BIN_CASES = {
+    "cap4": (4, 128, None, None, 0.8),
+    "cap256_over": (256, 320, None, None, 0.8),
+    "k_budget_cut": (16, 128, 1000, None, 0.8),
+    "window": (16, 144, None, (20, 27), 0.8),
+    "window_k_budget_cut": (16, 144, 300, (20, 27), 0.8),
+    "tiles_4096": (16, 1024, None, None, 0.8),
+    "tiles_16384": (4, 2048, 1_800_000, None, 0.8),
+    "tiles_odd": (16, 200, None, None, 0.8),
+    "nothing_emits": (16, 128, None, None, 0.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BIN_CASES))
+@pytest.mark.parametrize("channels", [3, 9, 12])
+def test_binning_kernels_match_plain(cuda, case, channels):
+    """The kernel binning gives the plain version's stream, starts,
+    overflow, sorted ranks and presort permutation bit for bit, and
+    ``LAUNCHES_BIN`` counts the call."""
+    cap, res, k_budget, window, keep = BIN_CASES[case]
+    config = TR.RasterizeConfig(max_dup_per_gaussian=cap, chunk_size=64,
+                                k_budget=k_budget, opacity_radius=True)
+    means, op, settings, kw = _scene(cuda, channels, res=res)
+    valid = torch.from_numpy(
+        np.random.RandomState(channels).rand(means.shape[0]) < keep)
+    prep = TR.preprocess(means, op, settings, config,
+                         valid_mask=valid.to(cuda), **kw)
+    gx = -(-res // 16)
+    nt = gx * gx
+    before = TRS.LAUNCHES_BIN
+    got = TRS.bin_sorted_stream(prep, nt, gx, config, return_entries=True,
+                                tile_window=window)
+    torch.cuda.synchronize()
+    assert TRS.LAUNCHES_BIN == before + 1
+    ref = TRS.bin_sorted_stream_plain(prep, nt, gx, config,
+                                      return_entries=True, tile_window=window)
+    assert TRS.LAUNCHES_BIN == before + 1
+    stream, starts, ovf, ranks, gidx_s = got
+    assert stream.dtype == torch.float32 and stream.is_contiguous()
+    assert starts.dtype == torch.int32 and ranks.dtype == torch.int64
+    assert torch.equal(stream.view(torch.int32), ref[0].view(torch.int32))
+    for g, r in zip(got[1:], ref[1:]):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    # each case reaches what it is named for
+    emitted = int(TR.entry_count(prep, config))
+    if case == "nothing_emits":
+        assert stream.shape[0] == 0 and emitted == 0
+    else:
+        assert stream.shape[0] > 0
+    if case == "cap256_over":
+        assert int(ovf) > 0
+    if case == "k_budget_cut":
+        assert emitted > stream.shape[0] == 1024
+    if case == "window_k_budget_cut":
+        assert int(starts[-1]) == stream.shape[0] == 320  # 300 in chunks
+    if case == "tiles_16384":
+        assert stream.shape[0] == emitted  # the budget cuts nothing
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,views", [("learned", 12), ("analytic", 16)])
+def test_every_view_of_a_request_bins_on_the_kernels(cuda, kind, views):
+    """A request of a learned ring (12 views) and of an analytic orbit
+    (16 views), recorded: ``LAUNCHES_BIN`` and the request's
+    ``bin_kernel_views`` counter both count every view."""
+    from gpcr_tpu_torch.cli.profile_pcrender import (LEARNED_INFO,
+                                                     synthetic_cloud)
+    from gpcr_tpu_torch.render import renderer as RD
+    from gpcr_tpu_torch.structures.pointcloud import PointCloud
+    from gpcr_tpu_torch.utils import trace
+
+    xyz, rgb = synthetic_cloud(3000)
+    pcd = PointCloud.from_numpy(xyz, rgb, device=cuda)
+    cam = RD.generate_cam({"fov": 45, "width_px": 32, "height_px": 32,
+                           "mode": "circle", "n_imgs": views, "d": 0,
+                           "r": 3, "center_angles": [90, 0]}, device=cuda)
+    if kind == "learned":
+        rdr = RD.PCMLRender(
+            info=dict(LEARNED_INFO, clr_encoder_channels="9 8 8 8 8 8"),
+            voxelized=True, scale_factor=448, device=str(cuda),
+            config=TR.RasterizeConfig(max_dup_per_gaussian=256,
+                                      chunk_size=256, opacity_radius=True))
+    else:
+        rdr = RD.SimpleRender(voxelized=True, scale_factor=448,
+                              config=TR.RasterizeConfig(
+                                  max_dup_per_gaussian=4, chunk_size=256))
+    before = TRS.LAUNCHES_BIN
+    with trace.recording() as rec:
+        rdr.render(pcd, None, cam, 45, background_color=1.0)
+        torch.cuda.synchronize()
+    assert TRS.LAUNCHES_BIN == before + views
+    assert {r: c["bin_kernel_views"] for r, c in rec.counters.items()
+            if "bin_kernel_views" in c} == {0: views}
 
 
 @pytest.mark.gpu

@@ -114,6 +114,23 @@ def test_binning_matches_jax_exactly(opacity_radius):
         stream.numpy(), np.asarray(j_stream)[:total, :stream.shape[1]])
 
 
+def test_cpu_binning_takes_the_plain_version():
+    """CPU tensors run ``bin_sorted_stream_plain``, never the kernels."""
+    a, js, ts = scene(seed=2)
+    _, tcfg = _configs(max_dup_per_gaussian=8, chunk_size=64)
+    tp = TR.preprocess(torch.from_numpy(a["means"]), torch.from_numpy(a["op"]),
+                       ts, tcfg, **_torch_args(a))
+    before = TRS.LAUNCHES_BIN
+    got = TRS.bin_sorted_stream(tp, 16, 4, tcfg, return_entries=True,
+                                tile_window=(4, 8))
+    ref = TRS.bin_sorted_stream_plain(tp, 16, 4, tcfg, return_entries=True,
+                                      tile_window=(4, 8))
+    assert TRS.LAUNCHES_BIN == before
+    assert got[0].shape[0] > 0 and got[1].shape == (9,)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 # --------------------------------------------------------------------------
 # blend: plain version vs blend_stream(interpret=True)
 # --------------------------------------------------------------------------

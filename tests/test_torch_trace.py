@@ -168,6 +168,7 @@ def test_learned_counters(scene, binned_rows):
         assert c["entries_dropped"] == t["dup_overflow"]
         assert 0 < c["tiles_rendered"] <= VIEWS * (64 // 16) ** 2
         assert "device_allocs" not in c  # counted on a CUDA device only
+        assert "bin_kernel_views" not in c  # the CPU bins plainly
 
 
 def test_analytic_counters(scene, binned_rows):
@@ -181,6 +182,7 @@ def test_analytic_counters(scene, binned_rows):
     assert c["entries_dropped"] == timing["dup_overflow"] > 0
     assert c["tiles_rendered"] == VIEWS * 3  # max_active_tiles per view
     assert "voxels" not in c and "plan_builds" not in c
+    assert "bin_kernel_views" not in c  # the CPU bins plainly
 
 
 def test_render_span_on_the_profiler_clock(scene):
