@@ -121,8 +121,7 @@ def _raster_config(args) -> RasterizeConfig:
     """Inference raster config: 256-row stream chunks, the tiles-per-splat
     cap (overflow is counted and warned), opacity-aware tile rects."""
     return RasterizeConfig(
-        impl="stream", max_dup_per_gaussian=args.dup_cap,
-        chunk_size=256,
+        max_dup_per_gaussian=args.dup_cap, chunk_size=256,
         max_active_tiles=args.max_active_tiles or None,
         k_budget=args.k_budget or None,
         opacity_radius=not args.no_opacity_radius,

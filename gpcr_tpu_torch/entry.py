@@ -11,10 +11,10 @@ tiny scene:
    maps);
 4. the encoder with ``params`` applied by ``torch.func.functional_call``
    (the counterpart of ``model.apply(params, ...)``);
-5. ``pcgc_rescale(..., 512, 96)`` of the splat centres;
-6. the scales times ``sqrt(3) / 96 * 6``;
-7. ``_render_one_view`` of view 0 (dup cap 8, chunk 64, tile batch 4):
-   on the card one launch of the serving blend kernel.
+5. ``world_splats``: ``pcgc_rescale(..., 512, 96)`` of the splat
+   centres, the scales times ``sqrt(3) / 96 * 6``;
+6. ``render_view`` of view 0 (dup cap 8, chunk 64, tile batch 4): on the
+   card one launch of the serving blend kernel.
 
 It returns the (12, 32, 32) image (rgb, world xyz, hit map, normal) and
 drops the dup-cap overflow, as the JAX ``fn`` does. ``fn`` asks for no
@@ -56,7 +56,6 @@ with ``--device cpu`` in one gloo CPU process.
 from __future__ import annotations
 
 import argparse
-import math
 
 import numpy as np
 import torch
@@ -117,23 +116,16 @@ def entry(device="cuda", generator=None):
     params = {k: p.detach() for k, p in model.named_parameters()}
     coords, rgb, view_t, full_t, campos, tanfov = _tiny_scene(device=dev)
     bg3 = torch.zeros(3, device=dev)
-    scale_mult = math.sqrt(3.0) / INFO.scale_factor * 6
 
     def fn(params, coords, rgb, view_t, full_t, campos):
         feats = assemble_input_features(INFO, coords, rgb)
         grid = sparse.quantize_average(coords, feats)
         plan = model.build_plan(grid)
-        sp = functional_call(model, params, (grid, plan))
-        means = RD.pcgc_rescale(sp.primitives, OFFSET, INFO.scale_factor)
-        scales = sp.scale * scale_mult
-        normal = (sp.normal if sp.normal is not None
-                  else torch.zeros_like(means))
-        color, _overflow = RD._render_one_view(
-            view_t[0], full_t[0], campos[0],
-            means, scales, sp.rotation, sp.opacity[:, 0], sp.sh, normal,
-            sp.valid, bg3, tanfov, HW, HW, INFO.sh_deg, CONFIG,
-            sp.normal is not None,
-        )
+        splats = RD.world_splats(functional_call(model, params, (grid, plan)),
+                                 OFFSET, INFO.scale_factor)
+        color, _overflow = RD.render_view(
+            view_t[0], full_t[0], campos[0], *splats[:7], bg3, tanfov, HW,
+            HW, INFO.sh_deg, CONFIG, splats.with_normal)
         return color
 
     return fn, (params, coords, rgb, view_t, full_t, campos)

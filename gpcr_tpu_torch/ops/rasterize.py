@@ -1,14 +1,22 @@
-"""Tile-based Gaussian rasterizer: config, preprocessing and the public
-dispatcher (port of ``gpcr_tpu/ops/rasterize.py``).
+"""Tile-based Gaussian rasterizer: config, preprocessing, the frame
+skeleton every route shares and the public dispatcher (port of
+``gpcr_tpu/ops/rasterize.py``).
 
-The port has ONE forward path: preprocess here, then bin + blend in
-``ops/rasterize_stream.py``, whose blend launches the hand-written CUDA
-kernel for CUDA tensors and runs its plain PyTorch version for CPU
-tensors. With ``config.differentiable`` the same path runs inside the
-``torch.autograd.Function`` of ``ops/rasterize_stream_vjp.py``, whose
-backward is the replay kernel. There is no separate XLA-style blend and no
-silent switch of device: the tensors' device decides, and a CUDA run that
-cannot launch a kernel raises.
+A frame is ``rasterize_frame``: preprocess, a route's tile core (bin +
+blend + background of every tile), then tile assembly. The cores:
+
+- serving: ``rasterize_stream.STREAM`` (``blend_stream``; the blend
+  launches the hand-written CUDA kernel for CUDA tensors and runs its
+  plain PyTorch version for CPU tensors);
+- differentiable: ``rasterize_stream_vjp.DIFF`` (the same binning inside
+  a ``torch.autograd.Function`` whose backward is the replay kernel);
+- aligned all-tiles blend: ``rasterize_aligned.ALIGNED``;
+- tile-sharded: ``parallel.render.tile_sharded_core``.
+
+``rasterize_gaussians`` takes the serving core, or with
+``config.differentiable`` the differentiable one. There is no separate
+XLA-style blend and no silent switch of device: the tensors' device
+decides, and a CUDA run that cannot launch a kernel raises.
 """
 
 from __future__ import annotations
@@ -18,29 +26,21 @@ import typing as T
 import torch
 
 from ..utils import sh as sh_utils
+from ..utils import trace
 from . import splat
 
 
 class RasterizeConfig(T.NamedTuple):
     """Rasterizer configuration; field names and defaults mirror
-    ``gpcr_tpu.ops.rasterize.RasterizeConfig``.
+    ``gpcr_tpu.ops.rasterize.RasterizeConfig``, whose fields for the TPU's
+    scan-based backward, grid steps and bf16 contraction the port does
+    not have (ROADMAP "Not queued").
 
-    Fields the port reads: ``tile_x``/``tile_y`` (the CUDA kernel takes
-    16x16 tiles only), ``max_dup_per_gaussian``, ``chunk_size`` (stream
-    rows staged per step), ``tile_batch`` (tiles per step of the plain
-    blend, which bounds its memory), ``k_budget``, ``max_active_tiles``,
-    ``downscale``, ``opacity_radius`` and ``differentiable`` (route to
-    ``rasterize_gaussians_stream_diff``: gradients through the replay
+    ``tile_x``/``tile_y``: the CUDA kernels take 16x16 tiles only;
+    ``chunk_size``: stream rows staged per step; ``tile_batch``: tiles per
+    step of the plain blend, which bounds its memory; ``differentiable``:
+    route to the differentiable core (gradients through the replay
     backward, native resolution).
-
-    Fields kept for API parity with NO effect here: ``max_chunks`` and
-    ``scan_impl`` (they shape the JAX package's scan-based differentiable
-    path, which the port does not have: its backward replays every
-    entry, so nothing is truncated); ``impl`` (there is one forward
-    path); ``tiles_per_step``, ``scan`` and
-    ``feat_precision`` (TPU grid-step, transmittance-scan and bf16-MXU
-    devices — the CUDA kernel composites sequentially and accumulates in
-    float32, which is the JAX "highest" semantics).
     """
 
     tile_x: int = 16
@@ -48,24 +48,18 @@ class RasterizeConfig(T.NamedTuple):
     max_dup_per_gaussian: int = 32
     chunk_size: int = 128
     tile_batch: int = 256
-    max_chunks: int = 64
     differentiable: bool = False
-    scan_impl: str = "cumprod"
-    # cap on sorted entries: None or -1 = no cap (every emitted entry is
-    # kept, the exact budget); a positive value keeps the first k_budget
-    # sorted entries (rounded up to chunk_size) and counts the rest as
-    # overflow
+    # cap on sorted entries: None, -1 or 0 = no cap (every emitted entry
+    # is kept, the exact budget); a positive value keeps the first
+    # k_budget sorted entries (rounded up to chunk_size) and counts the
+    # rest as overflow
     k_budget: T.Optional[int] = None
     # render only the max_active_tiles tiles with the most entries; the
     # entries of the rest count as overflow
     max_active_tiles: T.Optional[int] = None
-    impl: str = "stream"
     # 2 folds the x2-supersampling 2x2-mean downscale into the blend's
     # tile write (renders H x W, emits H/2 x W/2)
     downscale: int = 1
-    tiles_per_step: int = 4
-    feat_precision: str = "env"
-    scan: str = "env"
     # opacity-aware tile rects (exact: see splat.conic_and_radius)
     opacity_radius: bool = False
 
@@ -264,6 +258,104 @@ def check_debug(settings: GaussianRasterizationSettings, prep: Preprocessed,
         check_finite((prep.mean2d, prep.conic, color), name="rasterize")
 
 
+class TileCore(T.NamedTuple):
+    """A route's middle of the frame: ``blend(prep, bg, num_tiles,
+    grid_x, config, channels)`` bins and blends every tile and composites
+    ``bg`` (C,): (out (num_tiles, P, C), final_T (num_tiles, P), overflow
+    () i64). A ``native`` core renders at the settings' resolution
+    whatever ``config.downscale`` says."""
+
+    blend: T.Callable
+    native: bool = False
+
+
+def assemble_tiles(out, t_run, H, W, config: RasterizeConfig):
+    """(num_tiles, P, C) -> (C, H, W), (H, W)."""
+    grid_x = -(-W // config.tile_x)
+    grid_y = -(-H // config.tile_y)
+    channels = out.shape[-1]
+    img = out.reshape(grid_y, grid_x, config.tile_y, config.tile_x, channels)
+    img = img.permute(4, 0, 2, 1, 3).reshape(
+        channels, grid_y * config.tile_y, grid_x * config.tile_x
+    )[:, :H, :W]
+    t = t_run.reshape(grid_y, grid_x, config.tile_y, config.tile_x)
+    t = t.permute(0, 2, 1, 3).reshape(
+        grid_y * config.tile_y, grid_x * config.tile_x
+    )[:H, :W]
+    return img, t
+
+
+def rasterize_frame(
+    core: TileCore,
+    means3d,
+    opacities,
+    settings: GaussianRasterizationSettings,
+    scales=None,
+    rotations=None,
+    cov3d_precomp=None,
+    shs=None,
+    colors_precomp=None,
+    valid_mask=None,
+    config: RasterizeConfig = RasterizeConfig(),
+    return_extra: bool = False,
+):
+    """One frame through ``core``: (color (C, H, W), radii (N,) i32), plus
+    {"final_T", "dup_overflow"} with ``return_extra``.
+    ``config.downscale == 2`` returns H/2 x W/2 unless the core is native.
+
+    Exactly one of (shs, colors_precomp) and one of (scales+rotations,
+    cov3d_precomp) must be given.
+    """
+    if (shs is None) == (colors_precomp is None):
+        raise ValueError(
+            "Please provide exactly one of either SHs or precomputed colors!")
+    if (scales is None or rotations is None) == (cov3d_precomp is None):
+        raise ValueError(
+            "Please provide exactly one of either scale/rotation pair or "
+            "precomputed 3D covariance!")
+    H, W = settings.image_height, settings.image_width
+    if core.native:
+        config = config._replace(downscale=1)
+    ds = config.downscale
+    if ds > 1 and (H % ds or W % ds or config.tile_x % ds
+                   or config.tile_y % ds):
+        raise ValueError("downscale requires even H/W/tile dims")
+    grid_x = -(-W // config.tile_x)
+    num_tiles = grid_x * -(-H // config.tile_y)
+
+    with trace.span("gpcr.raster.preprocess"):
+        prep = preprocess(
+            means3d, opacities, settings, config,
+            scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
+            shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
+        )
+    out, t_run, overflow = core.blend(prep, settings.bg, num_tiles, grid_x,
+                                      config, prep.features.shape[-1])
+    with trace.span("gpcr.raster.epilogue"):
+        color, t_img = assemble_tiles(
+            out, t_run, H // ds, W // ds,
+            config._replace(tile_x=config.tile_x // ds,
+                            tile_y=config.tile_y // ds))
+    check_debug(settings, prep, color)
+    radii = prep.radius.to(torch.int32)
+    if return_extra:
+        return color, radii, {"final_T": t_img, "dup_overflow": overflow}
+    return color, radii
+
+
+def route_core(config: RasterizeConfig) -> TileCore:
+    """The core ``rasterize_gaussians`` takes for ``config``: the
+    differentiable one with ``config.differentiable``, else the serving
+    stream core."""
+    if config.differentiable:
+        from .rasterize_stream_vjp import DIFF
+
+        return DIFF
+    from .rasterize_stream import STREAM
+
+    return STREAM
+
+
 def rasterize_gaussians(
     means3d,
     opacities,
@@ -277,33 +369,10 @@ def rasterize_gaussians(
     config: RasterizeConfig = RasterizeConfig(),
     return_extra: bool = False,
 ):
-    """Full forward rasterization: (color (C, H, W), radii (N,)), plus
-    {"final_T", "dup_overflow"} with ``return_extra``.
-
-    Exactly one of (shs, colors_precomp) and one of (scales+rotations,
-    cov3d_precomp) must be given.
-    """
-    if (shs is None) == (colors_precomp is None):
-        raise ValueError(
-            "Please provide exactly one of either SHs or precomputed colors!")
-    if (scales is None or rotations is None) == (cov3d_precomp is None):
-        raise ValueError(
-            "Please provide exactly one of either scale/rotation pair or "
-            "precomputed 3D covariance!")
-    if config.differentiable:
-        from .rasterize_stream_vjp import rasterize_gaussians_stream_diff
-
-        fn = rasterize_gaussians_stream_diff
-    else:
-        from .rasterize_stream import rasterize_gaussians_stream
-
-        fn = rasterize_gaussians_stream
-    return fn(
-        means3d, opacities, settings,
-        scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
-        shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
-        config=config, return_extra=return_extra,
-    )
+    """``rasterize_frame`` through the core ``route_core`` picks."""
+    return rasterize_frame(
+        route_core(config), means3d, opacities, settings, scales, rotations,
+        cov3d_precomp, shs, colors_precomp, valid_mask, config, return_extra)
 
 
 def mark_visible(means3d, viewmatrix, projmatrix):

@@ -2,9 +2,10 @@
 kernel's wrapper with its plain version, and the rasterizer entry point
 (port of ``gpcr_tpu/ops/rasterize_pallas.py``: ``tile_bin_aligned``
 :46-108, ``blend_pallas`` :237-296 with its kernel ``_blend_kernel``
-:116-225, ``rasterize_gaussians_pallas`` :315-346; ``assemble_tiles`` is
-the one in ``rasterize_stream.py``; the flat two-phase blend :354-483 is a
-recorded negative and is not ported).
+:116-225, ``rasterize_gaussians_pallas`` :315-346, here the frame
+skeleton ``rasterize.rasterize_frame`` around the tile core ``ALIGNED``;
+the flat two-phase blend :354-483 is a recorded negative and is not
+ported).
 
 Layout. ``tile_bin_aligned`` sorts the entries by (tile, depth)
 (``rasterize.tile_bin``) and gives every tile whole chunks of
@@ -32,12 +33,12 @@ raises. As in the JAX package the route is forward only, ignores
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import cuda_build
 from . import rasterize as R
-from .rasterize_stream import assemble_tiles
 
 SCAL_ROWS = 6  # x, y, conic_x, conic_y, conic_z, opacity
 
@@ -308,49 +309,24 @@ def _aligned_blend_lib():
 
 
 # --------------------------------------------------------------------------
-# public entry points
+# the aligned tile core
 # --------------------------------------------------------------------------
 
 
 def blend_aligned(prep: R.Preprocessed, bg: torch.Tensor, num_tiles: int,
                   grid_x: int, config: R.RasterizeConfig, channels: int):
-    """Bin (chunk-aligned) + blend all tiles + background. Returns (out
-    (num_tiles, P, C), final_T (num_tiles, P)). The binning's overflow
-    count is dropped, as ``blend_pallas`` drops it."""
+    """The aligned tile core: bin (chunk-aligned) + blend all tiles +
+    background. Returns (out (num_tiles, P, C), final_T (num_tiles, P),
+    overflow 0): the binning's overflow count is dropped, as
+    ``blend_pallas`` drops it."""
     scal, feat, chunk_starts, _ = tile_bin_aligned(prep, num_tiles, grid_x,
                                                    config)
     acc, t_run = blend_aligned_tiles(chunk_starts, scal, feat, num_tiles,
                                      grid_x, channels, config)
     out = acc + t_run[..., None] * bg.to(acc.dtype)[None, None, :]
-    return out, t_run
+    return out, t_run, torch.zeros((), dtype=torch.long, device=out.device)
 
 
-def rasterize_gaussians_aligned(
-    means3d,
-    opacities,
-    settings: R.GaussianRasterizationSettings,
-    scales=None,
-    rotations=None,
-    cov3d_precomp=None,
-    shs=None,
-    colors_precomp=None,
-    valid_mask=None,
-    config: R.RasterizeConfig = R.RasterizeConfig(),
-):
-    """Forward rasterization through the aligned all-tiles blend: (color
-    (C, H, W), radii (N,) i32), always at the settings' resolution."""
-    H, W = settings.image_height, settings.image_width
-    grid_x = -(-W // config.tile_x)
-    grid_y = -(-H // config.tile_y)
-    num_tiles = grid_x * grid_y
-    prep = R.preprocess(
-        means3d, opacities, settings, config,
-        scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
-        shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
-    )
-    channels = prep.features.shape[-1]
-    out, t_run = blend_aligned(prep, settings.bg, num_tiles, grid_x, config,
-                               channels)
-    color, _ = assemble_tiles(out, t_run, H, W, config)
-    R.check_debug(settings, prep, color)
-    return color, prep.radius.to(torch.int32)
+# the aligned route, always at the settings' resolution
+ALIGNED = R.TileCore(blend_aligned, native=True)
+rasterize_gaussians_aligned = functools.partial(R.rasterize_frame, ALIGNED)

@@ -1,6 +1,6 @@
 """Stream rasterizer: binning into one tile-sorted stream, the blend
-kernel wrapper, and its epilogue (port of ``gpcr_tpu/ops/rasterize_stream.py``
-default path, plus ``rasterize_pallas.assemble_tiles``).
+kernel wrapper, and the serving tile core ``STREAM`` (port of
+``gpcr_tpu/ops/rasterize_stream.py`` default path).
 
 Binning (``bin_sorted_stream``; in JAX it is XLA sorts and gathers outside
 the Pallas kernel):
@@ -40,6 +40,7 @@ backward needs.
 from __future__ import annotations
 
 import ctypes
+import functools
 import typing as T
 
 import torch
@@ -611,7 +612,7 @@ def _stream_blend_lib():
 
 
 # --------------------------------------------------------------------------
-# epilogue and public entry points
+# the serving tile core
 # --------------------------------------------------------------------------
 
 
@@ -663,65 +664,6 @@ def blend_stream(
     return out, t_run, overflow
 
 
-def assemble_tiles(out, t_run, H, W, config: R.RasterizeConfig):
-    """(num_tiles, P, C) -> (C, H, W), (H, W)."""
-    grid_x = -(-W // config.tile_x)
-    grid_y = -(-H // config.tile_y)
-    channels = out.shape[-1]
-    img = out.reshape(grid_y, grid_x, config.tile_y, config.tile_x, channels)
-    img = img.permute(4, 0, 2, 1, 3).reshape(
-        channels, grid_y * config.tile_y, grid_x * config.tile_x
-    )[:, :H, :W]
-    t = t_run.reshape(grid_y, grid_x, config.tile_y, config.tile_x)
-    t = t.permute(0, 2, 1, 3).reshape(
-        grid_y * config.tile_y, grid_x * config.tile_x
-    )[:H, :W]
-    return img, t
-
-
-def rasterize_gaussians_stream(
-    means3d,
-    opacities,
-    settings: R.GaussianRasterizationSettings,
-    scales=None,
-    rotations=None,
-    cov3d_precomp=None,
-    shs=None,
-    colors_precomp=None,
-    valid_mask=None,
-    config: R.RasterizeConfig = R.RasterizeConfig(),
-    return_extra: bool = False,
-):
-    """Forward rasterization through the stream path: (color (C, H, W),
-    radii (N,) i32) plus {"final_T", "dup_overflow"} with
-    ``return_extra``. ``config.downscale == 2`` returns H/2 x W/2."""
-    H, W = settings.image_height, settings.image_width
-    grid_x = -(-W // config.tile_x)
-    grid_y = -(-H // config.tile_y)
-    num_tiles = grid_x * grid_y
-    ds = config.downscale
-    if ds > 1 and (H % ds or W % ds or config.tile_x % ds
-                   or config.tile_y % ds):
-        raise ValueError("downscale requires even H/W/tile dims")
-
-    with trace.span("gpcr.raster.preprocess"):
-        prep = R.preprocess(
-            means3d, opacities, settings, config,
-            scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
-            shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
-        )
-    channels = prep.features.shape[-1]
-    out, t_run, overflow = blend_stream(
-        prep, settings.bg, num_tiles, grid_x, config, channels)
-    with trace.span("gpcr.raster.epilogue"):
-        if ds > 1:
-            acfg = config._replace(tile_x=config.tile_x // ds,
-                                   tile_y=config.tile_y // ds)
-            color, t_img = assemble_tiles(out, t_run, H // ds, W // ds, acfg)
-        else:
-            color, t_img = assemble_tiles(out, t_run, H, W, config)
-    R.check_debug(settings, prep, color)
-    radii = prep.radius.to(torch.int32)
-    if return_extra:
-        return color, radii, {"final_T": t_img, "dup_overflow": overflow}
-    return color, radii
+# the serving route: the frame skeleton around ``blend_stream``
+STREAM = R.TileCore(blend_stream)
+rasterize_gaussians_stream = functools.partial(R.rasterize_frame, STREAM)

@@ -35,6 +35,7 @@ PyTorch versions run for CPU tensors only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -308,49 +309,19 @@ class _BlendCore(torch.autograd.Function):
                 None, None, None, None, None, None, None)
 
 
-# --------------------------------------------------------------------------
-# public entry
-# --------------------------------------------------------------------------
-
-
-def rasterize_gaussians_stream_diff(
-    means3d,
-    opacities,
-    settings: R.GaussianRasterizationSettings,
-    scales=None,
-    rotations=None,
-    cov3d_precomp=None,
-    shs=None,
-    colors_precomp=None,
-    valid_mask=None,
-    config: R.RasterizeConfig = R.RasterizeConfig(),
-    return_extra: bool = False,
-):
-    """Differentiable rasterization: forward = the stream blend with the
-    contributor count, backward = the back-to-front replay kernel. Drop-in
-    for ``rasterize_gaussians`` with ``differentiable=True``; gradients of
-    preprocess (means3d / scales / rotations / shs) flow through ordinary
-    autograd outside the Function. Renders at native resolution
-    (``downscale`` is forced to 1): resize outside the rasterizer."""
-    H, W = settings.image_height, settings.image_width
-    grid_x = -(-W // config.tile_x)
-    grid_y = -(-H // config.tile_y)
-    num_tiles = grid_x * grid_y
-
-    prep = R.preprocess(
-        means3d, opacities, settings, config,
-        scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
-        shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
-    )
-    channels = prep.features.shape[-1]
-    cfg = config._replace(downscale=1)
-    out, t_run, overflow = _BlendCore.apply(
-        prep.mean2d, prep.conic, prep.opacity, prep.features, settings.bg,
+def blend_stream_diff(prep: R.Preprocessed, bg, num_tiles: int, grid_x: int,
+                      config: R.RasterizeConfig, channels: int):
+    """The differentiable tile core: ``_BlendCore`` on ``prep``'s fields,
+    at native resolution. Gradients of preprocess (means3d / scales /
+    rotations / shs) flow through ordinary autograd outside the
+    Function."""
+    return _BlendCore.apply(
+        prep.mean2d, prep.conic, prep.opacity, prep.features, bg,
         prep.depth.detach(), prep.rect, prep.valid,
-        num_tiles, grid_x, cfg, channels)
-    color, t_img = S.assemble_tiles(out, t_run, H, W, cfg)
-    R.check_debug(settings, prep, color)
-    radii = prep.radius.to(torch.int32)
-    if return_extra:
-        return color, radii, {"final_T": t_img, "dup_overflow": overflow}
-    return color, radii
+        num_tiles, grid_x, config, channels)
+
+
+# the differentiable route: drop-in for ``rasterize_gaussians`` with
+# ``differentiable=True``; ``downscale`` is forced to 1 (resize outside)
+DIFF = R.TileCore(blend_stream_diff, native=True)
+rasterize_gaussians_stream_diff = functools.partial(R.rasterize_frame, DIFF)

@@ -220,8 +220,7 @@ def render_inputs(q: int = 3, hw: int = RENDER_HW, seed: int = 2,
 def check_rendering(n: int, device) -> float:
     """Both sharded render modes against ``render_views_fused``; returns
     the largest difference."""
-    from ..render.renderer import render_views_fused
-    from .render import render_views_sharded
+    from ..render.renderer import render_views_fused, render_views_sharded
     from .sharding import make_mesh
 
     flat = make_mesh(sp=n)
@@ -265,7 +264,7 @@ def check_overflow(n: int, device) -> int:
     returns it."""
     from ..ops import rasterize as R
     from ..ops import rasterize_stream as RS
-    from .render import rasterize_tile_sharded, window_of
+    from .render import tile_sharded_core, window_of
     from .sharding import make_mesh
 
     flat = make_mesh(sp=n)
@@ -277,9 +276,11 @@ def check_overflow(n: int, device) -> int:
         tanfovy=args[11], bg=torch.zeros(6, device=device), scale_modifier=1.0,
         viewmatrix=args[0][0], projmatrix=args[1][0], sh_degree=0,
         campos=args[2][0])
-    _, _, _, ovf = rasterize_tile_sharded(
-        args[3], args[6], settings, flat, scales=args[4], rotations=args[5],
-        colors_precomp=features, config=config)
+    _, _, extra = R.rasterize_frame(
+        tile_sharded_core(flat), args[3], args[6], settings, scales=args[4],
+        rotations=args[5], colors_precomp=features, config=config,
+        return_extra=True)
+    ovf = extra["dup_overflow"]
     prep = R.preprocess(args[3], args[6], settings, config, scales=args[4],
                         rotations=args[5], colors_precomp=features)
     grid = RENDER_HW // 16

@@ -1,12 +1,17 @@
 """Renderer orchestration (port of ``gpcr_tpu/render/renderer.py``):
 ``PCMLRender`` (learned splats from the PCEncoder) and ``SimpleRender``
-(analytic splats), the projection / raster-settings builders and
-``pcgc_rescale``.
+(analytic splats) over one shared request tail (``_render_request``),
+the projection / raster-settings builders, ``pcgc_rescale`` and
+``world_splats``.
 
 All outputs of a view — rgb, world xyz, hit map and (learned path)
-normal — are feature channels of ONE rasterizer pass, and the x2
-supersampling downscale is folded into the blend kernel's tile write.
-Views render in a Python loop.
+normal — are feature channels of ONE rasterizer pass
+(``fuse_view_features``, read back by ``split_view_channels``), and on
+the serving route the x2 supersampling downscale is folded into the
+blend kernel's tile write. Views render in one Python loop,
+``render_views_fused``, whatever the route: serving, differentiable
+(the trainer), aligned (``use_pallas``) or tile-sharded
+(``render_views_sharded``).
 
 Parity notes kept from the reference: raster settings use tanfov =
 tan(fov), NOT tan(fov/2) (:101-102); the projection matrix uses tan(fov/2)
@@ -16,6 +21,7 @@ sqrt(3)/scale_factor*6.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -26,7 +32,12 @@ import torch
 
 from ..models.encoder import PCEncoder, PCMLInfo, assemble_input_features
 from ..ops import rasterize as R
+from ..ops import rasterize_aligned as RA
+from ..ops import rasterize_stream as RS
 from ..ops import sparse
+from ..parallel.distributed import get_world_size, is_main
+from ..parallel.render import tile_sharded_core
+from ..parallel.sharding import Mesh, make_mesh
 from ..structures.camera import Camera
 from ..structures.pointcloud import PointCloud
 from ..structures.trajectory import CameraTrajectory
@@ -157,7 +168,8 @@ def bilinear_resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 def fuse_view_features(campos, means3d, shs, normal, bg3, sh_degree,
                        with_normal):
     """Per-view fused features [rgb | xyz | ones | (camera-facing normal)]
-    and their per-channel background [bg3, bg3, bg3 (, bg3)]."""
+    and their per-channel background [bg3, bg3, bg3 (, bg3)]; the layout
+    ``split_view_channels`` reads back."""
     rgb = sh_utils.eval_sh_color(sh_degree, shs, means3d, campos)
     feats = [rgb, means3d, torch.ones_like(means3d)]
     bgs = [bg3, bg3, bg3]
@@ -170,18 +182,27 @@ def fuse_view_features(campos, means3d, shs, normal, bg3, sh_degree,
     return torch.cat(feats, dim=-1), torch.cat(bgs, dim=-1)
 
 
-def _render_one_view(
+def split_view_channels(colors: torch.Tensor, with_normal: bool) -> dict:
+    """(q, C, h, w) images of ``fuse_view_features``' layout -> {"rgb",
+    "xyz_w", "hitmap", "normal"} of (q, h, w, 3) (normal None without
+    ``with_normal``)."""
+    out = {k: colors[:, i:i + 3].permute(0, 2, 3, 1)
+           for k, i in (("rgb", 0), ("xyz_w", 3), ("hitmap", 6))}
+    out["normal"] = (colors[:, 9:12].permute(0, 2, 3, 1) if with_normal
+                     else None)
+    return out
+
+
+def render_view(
     view_t, full_t, campos,
     means3d, scales, rotations, opacity, shs, normal, valid,
     bg3, tanfov, height, width, sh_degree, config: R.RasterizeConfig,
-    with_normal: bool, use_pallas: bool = False,
+    with_normal: bool, core: T.Optional[R.TileCore] = None,
 ):
-    """Render one view with all output channels fused into one pass
-    (gradients flow when ``config.differentiable``). ``use_pallas`` (the
-    JAX package's name for it) takes the aligned all-tiles blend of
-    ``ops/rasterize_aligned.py``: forward only, always at (height, width),
-    and its dropped entries are not counted. Returns (color (C, h, w),
-    dup_overflow)."""
+    """Render one view with all output channels fused into one pass of
+    ``R.rasterize_frame`` through ``core`` (default ``R.route_core``:
+    gradients flow when ``config.differentiable``). Returns (color (C, h,
+    w), dup_overflow ())."""
     with trace.span("gpcr.raster.features"):
         features, bg = fuse_view_features(
             campos, means3d, shs, normal, bg3, sh_degree, with_normal)
@@ -190,18 +211,10 @@ def _render_one_view(
         tanfovy=tanfov, bg=bg, scale_modifier=1.0, viewmatrix=view_t,
         projmatrix=full_t, sh_degree=sh_degree, campos=campos,
     )
-    if use_pallas:
-        from . import _get_pallas_raster
-
-        color, _ = _get_pallas_raster()(
-            means3d, opacity, settings, scales=scales, rotations=rotations,
-            colors_precomp=features, valid_mask=valid, config=config,
-        )
-        return color, torch.zeros((), dtype=torch.long, device=color.device)
-    color, _, extra = R.rasterize_gaussians(
-        means3d, opacity, settings, scales=scales, rotations=rotations,
-        colors_precomp=features, valid_mask=valid, config=config,
-        return_extra=True,
+    color, _, extra = R.rasterize_frame(
+        core or R.route_core(config), means3d, opacity, settings,
+        scales=scales, rotations=rotations, colors_precomp=features,
+        valid_mask=valid, config=config, return_extra=True,
     )
     return color, extra["dup_overflow"]
 
@@ -212,38 +225,70 @@ def render_views_fused(
     bg3, tanfov,
     height: int, width: int, out_h: int, out_w: int, sh_degree: int,
     config: R.RasterizeConfig, with_normal: bool, use_pallas: bool = False,
+    core: T.Optional[R.TileCore] = None,
 ) -> dict:
-    """All views of one cloud, one fused rasterizer pass per view.
-    Returns a dict of (q, out_h, out_w, 3) images plus per-view
-    ``dup_overflow`` (q,)."""
+    """All views of one cloud, one fused rasterizer pass per view
+    (``render_view``) through ``core``: by default ``R.route_core``, or
+    with ``use_pallas`` (the JAX package's name) the aligned all-tiles
+    blend, which reports no dropped entries. Only the serving stream core
+    folds the x2-supersampling downscale into its tile write; the other
+    cores render at (height, width) and the images are resized after.
+    Returns ``split_view_channels``' (q, out_h, out_w, 3) images plus
+    per-view ``dup_overflow`` (q,)."""
     pin_fp32()
-    if (not use_pallas and config.downscale == 1
+    if core is None:
+        core = RA.ALIGNED if use_pallas else R.route_core(config)
+    if (core is RS.STREAM and config.downscale == 1
             and height == 2 * out_h and width == 2 * out_w
             and config.tile_x % 2 == 0 and config.tile_y % 2 == 0):
-        # fold the x2-supersampling downscale into the stream blend's tile
-        # write; the aligned route renders at full size and is resized below
         config = config._replace(downscale=2)
     colors, overflow = [], []
     for vt, ft, cp in zip(view_ts, full_ts, camposes):
         with trace.span("gpcr.raster.view"):
-            color, ovf = _render_one_view(
+            color, ovf = render_view(
                 vt, ft, cp, means3d, scales, rotations, opacity, shs, normal,
                 valid, bg3, tanfov, height, width, sh_degree, config,
-                with_normal, use_pallas)
+                with_normal, core)
         colors.append(color)
         overflow.append(ovf)
     with trace.span("gpcr.raster.resize"):
         colors = bilinear_resize(torch.stack(colors), out_h, out_w)
-        return {
-            "rgb": colors[:, 0:3].permute(0, 2, 3, 1),
-            "xyz_w": colors[:, 3:6].permute(0, 2, 3, 1),
-            "hitmap": colors[:, 6:9].permute(0, 2, 3, 1),
-            "normal": (colors[:, 9:12].permute(0, 2, 3, 1) if with_normal
-                       else None),
-            # dropped splat-tile entries per view (dup cap / k_budget /
-            # max_active_tiles); callers warn after the timed region
-            "dup_overflow": torch.stack(overflow),
-        }
+        # dropped splat-tile entries per view (dup cap / k_budget /
+        # max_active_tiles); callers warn after the timed region
+        return dict(split_view_channels(colors, with_normal),
+                    dup_overflow=torch.stack(overflow))
+
+
+def render_views_sharded(
+    mesh: Mesh,
+    mode: str,  # 'views' | 'tiles'
+    view_ts, full_ts, camposes, *args, axis: str = "sp", **kw,
+) -> dict:
+    """Multi-GPU ``render_views_fused`` (same arguments after ``mode``),
+    the entry that the benchmark CLI's ``--shard views|tiles`` reaches;
+    the same dict on every rank of ``axis``.
+
+    - ``'views'``: rank d renders views [d q', (d + 1) q') of the q views
+      padded to q' n by repeating the last one; one ``all_gather`` per
+      output, cut back to q.
+    - ``'tiles'``: every view is rendered by all ranks together
+      (``parallel.render.tile_sharded_core``) at (height, width), then
+      resized, as ``gpcr_tpu`` does (no downscale fold).
+    """
+    if mode == "tiles":
+        return render_views_fused(view_ts, full_ts, camposes, *args,
+                                  core=tile_sharded_core(mesh, axis), **kw)
+    if mode != "views":
+        raise ValueError(f"unknown shard mode {mode!r}")
+    q = view_ts.shape[0]
+    per = -(-q // mesh.shape[axis])
+    d = mesh.coords[axis]
+    idx = torch.clamp(torch.arange(per * d, per * (d + 1)),
+                      max=q - 1).to(view_ts.device)
+    local = render_views_fused(view_ts[idx], full_ts[idx], camposes[idx],
+                               *args, **kw)
+    return {k: (mesh.all_gather(v, axis)[:q] if v is not None else None)
+            for k, v in local.items()}
 
 
 def apply_point_light(ret: dict, point_light: dict) -> torch.Tensor:
@@ -275,17 +320,41 @@ def est_normal_from_ellipsoid(scale, rotation):
     return torch.gather(Rm, 2, idx[:, None, None].expand(-1, 3, 1))[..., 0]
 
 
-def _exact_budget(config: R.RasterizeConfig) -> R.RasterizeConfig:
-    """k_budget -1 (auto) is the exact budget: with dynamic shapes the
-    binning keeps every emitted entry, which is what the JAX auto budget
-    achieves by sizing."""
-    return config._replace(k_budget=None) if config.k_budget == -1 else config
+class Splats(T.NamedTuple):
+    """World-space splats in ``render_views_fused``'s argument order;
+    ``normal`` is zeros where ``with_normal`` is False."""
+
+    means: torch.Tensor  # (N, 3)
+    scales: torch.Tensor  # (N, 3)
+    rotations: torch.Tensor  # (N, 4)
+    opacity: torch.Tensor  # (N,)
+    shs: torch.Tensor  # (N, K, 3)
+    normal: torch.Tensor  # (N, 3)
+    valid: torch.Tensor  # (N,) bool
+    with_normal: bool
+
+
+def world_splats(sp, offset, scale_factor, use_opacity: bool = True,
+                 normal=None) -> Splats:
+    """The encoder's ``SplatParams`` (grid units) as world splats: centres
+    by ``pcgc_rescale``, scales times sqrt(3) / scale_factor * 6, the
+    opacity column (ones without ``use_opacity``), and ``normal``, else
+    the network's, else zeros."""
+    means = pcgc_rescale(sp.primitives, offset, scale_factor)
+    opacity = sp.opacity[:, 0]
+    if not use_opacity:
+        opacity = torch.ones_like(opacity)
+    if normal is None:
+        normal = sp.normal
+    with_normal = normal is not None
+    return Splats(means, sp.scale * float(np.sqrt(3) / scale_factor * 6),
+                  sp.rotation, opacity, sp.sh,
+                  normal if with_normal else torch.zeros_like(means),
+                  sp.valid, with_normal)
 
 
 def _finish(out: dict, point_light, model_time, rgb_time,
             timing: T.Optional[dict]) -> dict:
-    from ..parallel.distributed import is_main
-
     if is_main():  # one timing line per run, from rank 0
         print("model time: %.3f sec, rgb time: %.3f sec"
               % (model_time, rgb_time), flush=True)
@@ -305,39 +374,70 @@ def _finish(out: dict, point_light, model_time, rgb_time,
     return ret
 
 
-def _make_sharded_runner(shard: str, shard_mesh=None):
-    """A drop-in for ``render_views_fused`` that renders over every rank
-    (``parallel.render.render_views_sharded``). ``shard`` is 'views' or
-    'tiles'; the mesh defaults to all ranks on 'sp' (without a process
-    group: one rank, one window)."""
-    from ..parallel.distributed import get_world_size
-    from ..parallel.render import render_views_sharded
-    from ..parallel.sharding import make_mesh
-
-    if shard not in ("views", "tiles"):
-        raise ValueError(f"unknown shard mode {shard!r}")
-    mesh = shard_mesh or make_mesh(sp=get_world_size())
-
-    def run(*args, **kw):
-        return render_views_sharded(mesh, shard, *args, **kw)
-
-    return run
-
-
 def _views_runner(rdr):
     """What renders a renderer's views: ``render_views_fused``, or with
-    ``rdr.shard`` its sharded runner (made at the first render, when the
-    process group it lays out exists)."""
+    ``rdr.shard`` ('views' | 'tiles') ``render_views_sharded`` on
+    ``rdr.shard_mesh``, by default all ranks on 'sp' (made at the first
+    render, when the process group it lays out exists; without one: one
+    rank, one window)."""
     if not rdr.shard:
         return render_views_fused
     if rdr._shard_runner is None:
-        rdr._shard_runner = _make_sharded_runner(rdr.shard, rdr.shard_mesh)
+        if rdr.shard not in ("views", "tiles"):
+            raise ValueError(f"unknown shard mode {rdr.shard!r}")
+        mesh = rdr.shard_mesh or make_mesh(sp=get_world_size())
+        rdr._shard_runner = functools.partial(render_views_sharded, mesh,
+                                              rdr.shard)
     return rdr._shard_runner
 
 
 def _concat_batch(outs: T.List[dict]) -> dict:
     return {k: (torch.cat([o[k] for o in outs], dim=0)
                 if outs[0][k] is not None else None) for k in outs[0]}
+
+
+def _render_request(rdr, pcd: PointCloud, scale, cam: Camera, fov: float,
+                    kw: dict, timing: T.Optional[dict], sh_degree: int,
+                    splats_of: T.Callable) -> dict:
+    """What both renderers' ``render`` share. A batch of clouds renders
+    cloud by cloud (``rdr.render`` with the keywords ``kw``, no
+    ``timing``) and is concatenated. One cloud is one request:
+    ``splats_of(pcd)`` -> (Splats, model time in s), the views
+    (``_views_runner``; once before the timed call with
+    ``rdr.warm_timing``) timed on the host clock, then ``_finish``."""
+    pin_fp32()
+    if pcd.batch_size > 1:
+        return _concat_batch([
+            rdr.render(pcd[ib], scale, cam[ib], fov, **kw)
+            for ib in range(pcd.batch_size)
+        ])
+    with trace.request(pcd.device):
+        splats, model_time = splats_of(pcd)
+        dev = splats.means.device
+        bg3 = torch.zeros((3,), device=dev) + torch.as_tensor(
+            np.asarray(kw["background_color"], np.float32), device=dev)
+        rp = get_rasterize_param_from_camera(
+            cam, fov, bg=bg3, sh_degree=sh_degree,
+            super_sample_rate=kw["super_sample_rate"])
+        fused = _views_runner(rdr)
+
+        def run():
+            return fused(
+                rp["view_t"], rp["full_t"], rp["campos"], *splats[:7], bg3,
+                rp["tanfov"], height=rp["height"], width=rp["width"],
+                out_h=cam.height_px, out_w=cam.width_px, sh_degree=sh_degree,
+                config=rdr.config, with_normal=splats.with_normal,
+            )
+
+        if rdr.warm_timing:
+            sync(run())
+        t0 = time.perf_counter()
+        out = run()
+        sync(out)
+        rgb_time = time.perf_counter() - t0
+        with trace.span("gpcr.finish"):
+            return _finish(out, kw["point_light"], model_time, rgb_time,
+                           timing)
 
 
 # --------------------------------------------------------------------------
@@ -372,19 +472,9 @@ class SimpleRender:
         est_normal_from_ellipsoid=False, background_color=0.0, sigma=1.0,
         timing: T.Optional[dict] = None,
     ) -> dict:
-        pin_fp32()
-        if pcd.batch_size > 1:
-            return _concat_batch([
-                self.render(
-                    pcd[ib], scale, cam[ib], fov,
-                    enable_opacity=enable_opacity,
-                    super_sample_rate=super_sample_rate,
-                    input_offset=input_offset, point_light=point_light,
-                    background_color=background_color, sigma=sigma,
-                )
-                for ib in range(pcd.batch_size)
-            ])
-        with trace.request(pcd.device):
+        sh_deg = 1
+
+        def splats(pcd):
             dev = pcd.device
             if input_offset is None:
                 in_off = torch.zeros((1, 3), device=dev)
@@ -398,7 +488,6 @@ class SimpleRender:
 
             t0 = time.perf_counter()
             with trace.span("gpcr.splats"):
-                sh_deg = 1
                 scale_norm = self.scale_factor if self.voxelized else 1.0
                 pseudo = (2 ** (sh_deg + 1)) * 3  # 12 zero AC rows
                 shs = torch.cat([sh_utils.RGB2SH(rgb)[:, None, :],
@@ -411,34 +500,17 @@ class SimpleRender:
                 scales = torch.ones((n, 3), device=dev) * (sigma / scale_norm)
                 opacity = torch.ones((n,), device=dev)
                 sync(opacity)
-            model_time = time.perf_counter() - t0
+            return (Splats(means, scales, rotations, opacity, shs,
+                           torch.zeros_like(means), valid, False),
+                    time.perf_counter() - t0)
 
-            bg3 = torch.zeros((3,), device=dev) + torch.as_tensor(
-                np.asarray(background_color, np.float32), device=dev)
-            rp = get_rasterize_param_from_camera(
-                cam, fov, bg=bg3, sh_degree=sh_deg,
-                super_sample_rate=super_sample_rate)
-            config = _exact_budget(self.config)
-            fused = _views_runner(self)
-
-            def run():
-                return fused(
-                    rp["view_t"], rp["full_t"], rp["campos"],
-                    means, scales, rotations, opacity, shs,
-                    torch.zeros_like(means), valid, bg3, rp["tanfov"],
-                    height=rp["height"], width=rp["width"],
-                    out_h=cam.height_px, out_w=cam.width_px,
-                    sh_degree=sh_deg, config=config, with_normal=False,
-                )
-
-            if self.warm_timing:
-                sync(run())
-            t0 = time.perf_counter()
-            out = run()
-            sync(out)
-            rgb_time = time.perf_counter() - t0
-            with trace.span("gpcr.finish"):
-                return _finish(out, point_light, model_time, rgb_time, timing)
+        return _render_request(
+            self, pcd, scale, cam, fov,
+            dict(enable_opacity=enable_opacity,
+                 super_sample_rate=super_sample_rate,
+                 input_offset=input_offset, point_light=point_light,
+                 background_color=background_color, sigma=sigma),
+            timing, sh_deg, splats)
 
 
 # --------------------------------------------------------------------------
@@ -570,21 +642,8 @@ class PCMLRender:
     ) -> dict:
         if consistent_normal:
             raise NotImplementedError("consistent_normal is not supported")
-        pin_fp32()
-        if pcd.batch_size > 1:
-            return _concat_batch([
-                self.render(
-                    pcd[ib], scale, cam[ib], fov,
-                    enable_opacity=enable_opacity,
-                    super_sample_rate=super_sample_rate,
-                    input_offset=input_offset, point_light=point_light,
-                    est_normal_from_ellipsoid=est_normal_from_ellipsoid,
-                    background_color=background_color,
-                )
-                for ib in range(pcd.batch_size)
-            ])
 
-        with trace.request(pcd.device):
+        def splats(pcd):
             # warmup then timed network pass (simple_raw_render.py:372-379)
             sp, _, _ = self.encode(pcd, input_offset)
             sync(sp.primitives)
@@ -592,49 +651,20 @@ class PCMLRender:
             sp, _, _ = self.encode(pcd, input_offset)
             sync(sp.primitives)
             model_time = time.perf_counter() - t0
-
-            dev = sp.primitives.device
             with trace.span("gpcr.splats"):
-                means = pcgc_rescale(sp.primitives, self.offset,
-                                     self.scale_factor)
-                radius = float(np.sqrt(3) / self.scale_factor * 6)
-                scales = sp.scale * radius
-                opacity = (sp.opacity[:, 0]
-                           if (enable_opacity and self.info.enable_opacity)
-                           else torch.ones_like(sp.opacity[:, 0]))
-                if est_normal_from_ellipsoid:
-                    normal = globals()["est_normal_from_ellipsoid"](
-                        sp.scale, sp.rotation)
-                else:
-                    normal = sp.normal
-                with_normal = normal is not None
-                if normal is None:
-                    normal = torch.zeros_like(means)
+                normal = (globals()["est_normal_from_ellipsoid"](
+                    sp.scale, sp.rotation) if est_normal_from_ellipsoid
+                    else None)
+                return world_splats(
+                    sp, self.offset, self.scale_factor,
+                    enable_opacity and self.info.enable_opacity,
+                    normal), model_time
 
-            bg3 = torch.zeros((3,), device=dev) + torch.as_tensor(
-                np.asarray(background_color, np.float32), device=dev)
-            rp = get_rasterize_param_from_camera(
-                cam, fov, bg=bg3, sh_degree=self.info.sh_deg,
-                super_sample_rate=super_sample_rate)
-            config = _exact_budget(self.config)
-            fused = _views_runner(self)
-
-            def run():
-                return fused(
-                    rp["view_t"], rp["full_t"], rp["campos"],
-                    means, scales, sp.rotation, opacity, sp.sh, normal,
-                    sp.valid, bg3, rp["tanfov"],
-                    height=rp["height"], width=rp["width"],
-                    out_h=cam.height_px, out_w=cam.width_px,
-                    sh_degree=self.info.sh_deg, config=config,
-                    with_normal=with_normal,
-                )
-
-            if self.warm_timing:
-                sync(run())
-            t0 = time.perf_counter()
-            out = run()
-            sync(out)
-            rgb_time = time.perf_counter() - t0
-            with trace.span("gpcr.finish"):
-                return _finish(out, point_light, model_time, rgb_time, timing)
+        return _render_request(
+            self, pcd, scale, cam, fov,
+            dict(enable_opacity=enable_opacity,
+                 super_sample_rate=super_sample_rate,
+                 input_offset=input_offset, point_light=point_light,
+                 est_normal_from_ellipsoid=est_normal_from_ellipsoid,
+                 background_color=background_color),
+            timing, self.info.sh_deg, splats)

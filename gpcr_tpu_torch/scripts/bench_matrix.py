@@ -86,7 +86,7 @@ def raster_config(dup_cap, k_budget, max_active, chunk=256):
     default of the JAX script), the dup cap and both budgets."""
     return R.RasterizeConfig(
         max_dup_per_gaussian=dup_cap, chunk_size=chunk, k_budget=k_budget,
-        max_active_tiles=max_active, impl="stream")
+        max_active_tiles=max_active)
 
 
 def make_scene(coords, rgb, sf, res_w, res_h, n_views, sigma=1.0, fov=45.0,

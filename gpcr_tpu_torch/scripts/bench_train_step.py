@@ -17,8 +17,7 @@ kernels), the loss, max|g| and every step's ms.
 
 Not ported, on purpose: ``--impl xla`` (the JAX package's differentiable
 XLA scan bounded by ``max_chunks``; the port's backward replays every
-entry, ROADMAP "Not queued"). ``max_chunks=64`` stays in the config for
-parity and has no effect.
+entry, ROADMAP "Not queued").
 """
 
 from __future__ import annotations
@@ -63,7 +62,7 @@ def build(args, device):
     config = R.RasterizeConfig(
         max_dup_per_gaussian=args.dup_cap, chunk_size=args.chunk,
         k_budget=args.k_budget, max_active_tiles=args.max_active,
-        impl="stream", differentiable=True, max_chunks=64)
+        differentiable=True)
     return leaves, settings, config
 
 

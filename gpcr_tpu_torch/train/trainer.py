@@ -30,8 +30,7 @@ import torch
 from ..models.encoder import PCEncoder, PCMLInfo, assemble_input_features
 from ..ops import rasterize as R
 from ..ops import sparse
-from ..render.renderer import (_render_one_view, bilinear_resize,
-                               pcgc_rescale, pin_fp32)
+from ..render.renderer import pin_fp32, render_views_fused, world_splats
 from . import losses as L
 
 
@@ -123,8 +122,7 @@ class Trainer:
         # budgets are workload-specific; pass a raster_config to set them)
         self.config = raster_config or R.RasterizeConfig(
             max_dup_per_gaussian=16, chunk_size=64, tile_batch=8,
-            differentiable=True, max_chunks=16, impl="stream",
-        )
+            differentiable=True)
         self.optimizer = make_optimizer(
             self.model.parameters(), learning_rate, num_warmup_steps, clip)
         self.step_count = 0
@@ -137,52 +135,25 @@ class Trainer:
 
     def _encode_splats(self, coords, rgb, valid):
         """Quantize one cloud, run the network and turn its output into
-        world-space splats: (means, scales, rotation, opacity, sh, normal,
-        valid, with_normal)."""
-        info = self.info
-        feats = assemble_input_features(info, coords, rgb, self.offset)
+        world-space splats (``world_splats``)."""
+        feats = assemble_input_features(self.info, coords, rgb, self.offset)
         grid = sparse.quantize_average(coords, feats, valid=valid)
-        plan = self.model.build_plan(grid)
-        sp = self.model(grid, plan)
-
-        means = pcgc_rescale(sp.primitives, self.offset, info.scale_factor)
-        radius = (3.0 ** 0.5) / info.scale_factor * 6
-        scales = sp.scale * radius
-        opacity = sp.opacity[:, 0]
-        with_normal = sp.normal is not None
-        normal = sp.normal if with_normal else torch.zeros_like(means)
-        return (means, scales, sp.rotation, opacity, sp.sh, normal, sp.valid,
-                with_normal)
+        sp = self.model(grid, self.model.build_plan(grid))
+        return world_splats(sp, self.offset, self.info.scale_factor)
 
     def _per_cloud_render(self, coords, rgb, valid, view_t, full_t, campos,
                           tanfov):
-        """Encode one cloud and render every view; returns the out dict
-        {'rgb','hitmap','normal'} with (V, h, w, C) images plus
-        'dup_overflow' (V,)."""
-        (means, scales, rotation, opacity, sh, normal, splat_valid,
-         with_normal) = self._encode_splats(coords, rgb, valid)
-
+        """Encode one cloud and render every view
+        (``render_views_fused``); returns its out dict with (V, h, w, C)
+        images plus 'dup_overflow' (V,)."""
+        splats = self._encode_splats(coords, rgb, valid)
         h, w = self.render_hw
-        bg3 = torch.zeros((3,), device=means.device)
-        colors, overflow = [], []
-        for vt, ft, cp in zip(view_t, full_t, campos):
-            color, ovf = _render_one_view(
-                vt, ft, cp, means, scales, rotation, opacity, sh,
-                normal, splat_valid, bg3, tanfov, h * self.ss, w * self.ss,
-                self.info.sh_deg, self.config, with_normal,
-            )
-            if self.ss > 1:
-                color = bilinear_resize(color, h, w)
-            colors.append(color)  # (C, h, w)
-            overflow.append(ovf)
-        colors = torch.stack(colors)  # (V, C, h, w)
-        return {
-            "rgb": colors[:, 0:3].permute(0, 2, 3, 1),
-            "hitmap": colors[:, 6:9].permute(0, 2, 3, 1),
-            "normal": (colors[:, 9:12].permute(0, 2, 3, 1) if with_normal
-                       else None),
-            "dup_overflow": torch.stack(overflow),
-        }
+        return render_views_fused(
+            view_t, full_t, campos, *splats[:7],
+            torch.zeros((3,), device=splats.means.device), tanfov,
+            height=h * self.ss, width=w * self.ss, out_h=h, out_w=w,
+            sh_degree=self.info.sh_deg, config=self.config,
+            with_normal=splats.with_normal)
 
     def _per_cloud_loss(self, coords, rgb, valid, view_t, full_t, campos,
                         gt_rgb, gt_normal, gt_hit, tanfov, view_share=1.0,

@@ -55,11 +55,11 @@ def learned_splats(rdr: RD.PCMLRender, pcd: PointCloud, dup_cap: int = 256):
         cam, _ = B._camera_for(args, "pcrender", dev)
         bg3 = torch.ones(3, device=dev)
         rp = RD.get_rasterize_param_from_camera(cam, 45, bg=bg3, sh_degree=1)
+    s = RD.world_splats(sp, 512, 448)
     return dict(
         rp=rp, config=B._raster_config(args)._replace(k_budget=None),
-        bg3=bg3, means=RD.pcgc_rescale(sp.primitives, 512, 448),
-        scales=sp.scale * float(3 ** 0.5 / 448 * 6), rotation=sp.rotation,
-        opacity=sp.opacity[:, 0], sh=sp.sh, normal=sp.normal, valid=sp.valid)
+        bg3=bg3, means=s.means, scales=s.scales, rotation=s.rotations,
+        opacity=s.opacity, sh=s.shs, normal=s.normal, valid=s.valid)
 
 
 def view0_prep(sp: dict):

@@ -188,7 +188,8 @@ def test_blend_aligned_plain_on_its_layout():
     # T stops at or above the 1e-4 threshold, never below it
     assert float(t.min()) >= 1e-4 and float(t.min()) < 1e-2
     bg = torch.tensor([0.2, 0.5, 0.9])
-    out, t2 = TRA.blend_aligned(prep, bg, 4, 2, tcfg, 3)
+    out, t2, ovf = TRA.blend_aligned(prep, bg, 4, 2, tcfg, 3)
+    assert int(ovf) == 0  # the aligned core drops the binning's overflow
     np.testing.assert_array_equal(t2.numpy(), t.numpy())
     np.testing.assert_allclose(
         out.numpy(), (acc + t[..., None] * bg).numpy(), atol=0)

@@ -9,7 +9,7 @@ inputs inline, the test runs it with a stand-in for the first function it
 hands them to, which records its arguments and stops the script.
 
 Tolerances: the clouds bit for bit; configs field for field (without
-``feat_precision``, the TPU's bf16 contraction, which the port drops);
+the JAX-only fields of ``DROPPED_FIELDS``, which the port drops);
 renders at atol 1e-5 (tests/test_torch_render.py's SimpleRender bar);
 the demo's held-out PSNR at 1e-4 dB and its loss at rtol 1e-4
 (tests/test_torch_train.py's bar), with weights carried across by
@@ -51,8 +51,11 @@ pin_fp32()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # RasterizeConfig fields the port drops: the TPU's one-pass bf16 feature
-# contraction (the CUDA kernel accumulates in float32)
-DROPPED_FIELDS = {"feat_precision"}
+# contraction (the CUDA kernel accumulates in float32), the scan-based
+# backward's chunk cap and scan, the forward path's name, grid steps and
+# transmittance scans (ROADMAP "Not queued")
+DROPPED_FIELDS = {"feat_precision", "max_chunks", "scan_impl", "impl",
+                  "tiles_per_step", "scan"}
 CACHE_FLAGS = ("jax_compilation_cache_dir",
                "jax_persistent_cache_min_compile_time_secs")
 
@@ -171,10 +174,10 @@ def test_clouds_equal_the_jax_scripts(source, jax_script, monkeypatch,
 
 
 def _assert_same_config(port, want):
-    assert type(port)._fields == type(want)._fields
+    assert type(port)._fields == tuple(
+        f for f in type(want)._fields if f not in DROPPED_FIELDS)
     for f in port._fields:
-        if f not in DROPPED_FIELDS:
-            assert getattr(port, f) == getattr(want, f), f
+        assert getattr(port, f) == getattr(want, f), f
 
 
 def _train_demo_setup(jax_script, monkeypatch, tmp_path):

@@ -86,8 +86,8 @@ def test_entry_matches_jax_with_level_caps_lifted(monkeypatch, tmp_path):
     seen_j, seen_t = [], []
     monkeypatch.setattr(JRD, "_render_one_view",
                         _recording(seen_j, JRD._render_one_view))
-    monkeypatch.setattr(TRD, "_render_one_view",
-                        _recording(seen_t, TRD._render_one_view))
+    monkeypatch.setattr(TRD, "render_view",
+                        _recording(seen_t, TRD.render_view))
     try:
         fn, args = GE.entry()
         # the recorded overflow is a tracer of the same trace, so one

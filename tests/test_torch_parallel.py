@@ -30,6 +30,7 @@ from gpcr_tpu_torch.ops import rasterize_stream as TRS
 from gpcr_tpu_torch.parallel import distributed, dryrun
 from gpcr_tpu_torch.parallel import render as TPR
 from gpcr_tpu_torch.parallel import sharding
+from gpcr_tpu_torch.render import renderer as TRD
 from gpcr_tpu_torch.render.renderer import pin_fp32
 
 # one intra-op thread: under xdist each worker would start torch's pool
@@ -227,7 +228,7 @@ def test_assembled_windows_equal_unwindowed_blend(tiles):
                                         *TPR.window_of(tiles, 4, d))[0]
                        for d in range(4)])[:tiles]
     assert torch.equal(out_s, out)
-    color, t_img = TRS.assemble_tiles(out, t_w, wh, wh, tcfg)
+    color, t_img = TR.assemble_tiles(out, t_w, wh, wh, tcfg)
 
     mesh = j_make_mesh(sp=8)
     run = jax.jit(lambda m, o, s, r, f: JPR.rasterize_tile_sharded(
@@ -273,7 +274,7 @@ def test_render_views_sharded_matches_jax(world_of_one, mode):
         ref = run(*(jnp.asarray(x) for x in arrays), jnp.float32(tanfov))
     mesh = sharding.make_mesh(sp=1)
     assert mesh.world is not None and mesh.shape == {"dp": 1, "sp": 1}
-    got = TPR.render_views_sharded(
+    got = TRD.render_views_sharded(
         mesh, mode, *(torch.from_numpy(x) for x in arrays), tanfov,
         config=TR.RasterizeConfig(**ckw), **kw)
     for k in ("rgb", "xyz_w", "hitmap", "normal"):
@@ -332,7 +333,6 @@ def test_pcml_render_sharded_matches_unsharded(world_of_one, shard):
     world of one rank against the unsharded renderer: 'views' the same
     images bit for bit, 'tiles' (rendered at full size, halved after)
     within 1e-5."""
-    from gpcr_tpu_torch.render import renderer as TRD
     from gpcr_tpu_torch.structures.pointcloud import PointCloud
 
     rng = np.random.RandomState(0)

@@ -110,6 +110,41 @@ def test_simple_render_matches_jax():
     assert got["normal"] is None and ref["normal"] is None
 
 
+@pytest.mark.parametrize("kind", ["simple", "pcml"])
+def test_batch_of_clouds_renders_each_cloud_alone(kind):
+    """A batch of two clouds, each with its own ring of 2 views of 32 px,
+    renders every output of each cloud bit for bit as that cloud renders
+    alone, and a batch writes nothing into ``timing``."""
+    clouds = [synthetic_cloud(n=300, seed=s) for s in (0, 1)]
+    cams = [TRD.generate_cam(dict(CAM32, center_angles=[90, a]))
+            for a in (0, 40)]
+    if kind == "simple":
+        rdr = TRD.SimpleRender(voxelized=True, scale_factor=clouds[0][2])
+    else:
+        rdr = TRD.PCMLRender(
+            info={"clr_encoder_channels": "9 8 8 8 8 8",
+                  "scale_factor": clouds[0][2]},
+            voxelized=True, device="cpu")
+    alone = [rdr.render(PointCloud.from_numpy(xyz, rgb), None, cam, 60.0,
+                        background_color=1.0)
+             for (xyz, rgb, _), cam in zip(clouds, cams)]
+    timing = {}
+    both = rdr.render(
+        PointCloud.from_numpy(np.stack([c[0] for c in clouds]),
+                              np.stack([c[1] for c in clouds])),
+        None, Camera.cat(cams, 0), 60.0, background_color=1.0, timing=timing)
+    assert timing == {}
+    assert sorted(both) == sorted(alone[0])
+    for k in OUTPUTS:
+        if kind == "simple" and k == "normal":
+            assert both[k] is None
+            continue
+        assert both[k].shape == (2, 2, 32, 32, 3), k
+        assert float(both[k][:, :, :, :, 0].std()) > 0, k  # clouds are seen
+        for ib in range(2):
+            assert torch.equal(both[k][ib], alone[ib][k][0]), (k, ib)
+
+
 def test_simple_path_reproduces_golden_frames():
     """Views 0 and 6 of the golden trajectory through the CLI's raster
     config; chip_smoke.py checks all 12 through the CUDA kernel."""

@@ -64,8 +64,8 @@ def _settings(W, H, bg):
 
 def _configs(**kw):
     kw = dict(tile_x=16, tile_y=16, max_dup_per_gaussian=9, chunk_size=8,
-              differentiable=True, max_chunks=64, **kw)
-    return JR.RasterizeConfig(**kw), TR.RasterizeConfig(**kw)
+              differentiable=True, **kw)
+    return JR.RasterizeConfig(max_chunks=64, **kw), TR.RasterizeConfig(**kw)
 
 
 def _weights(shape):
