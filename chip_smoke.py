@@ -10,12 +10,12 @@ Phases, each printing what it found:
 1. device: torch / CUDA versions, the card's name and power limit;
 2. build: compiles ``gpcr_tpu_torch/csrc/stream_blend.cu``,
    ``stream_blend_bwd.cu``, ``aligned_blend.cu``, ``sparse_conv.cu``,
-   ``patch_attn.cu`` and ``bin_stream.cu``
+   ``patch_attn.cu``, ``bin_stream.cu`` and ``preprocess.cu``
    with nvcc for sm_90a (all compilers started together; seconds per
    library) into
    ``gpcr_tpu_torch/build/`` and prints ptxas' registers, shared memory and
-   spills for C = 3, 9 and 12 and for every sparse conv, attention and
-   binning kernel,
+   spills for C = 3, 9 and 12 and for every sparse conv, attention,
+   binning and preprocess kernel,
    and the stages and shared memory of the chunk rings of the count
    forward and the aligned blend at their main-path shapes;
 3. kernel vs plain: on seeded ~20K-gaussian scenes (512² and 1024², 9 and
@@ -69,8 +69,13 @@ Phases, each printing what it found:
    ``bin_sorted_stream_plain``, every output bit-equal, both timed (CUDA
    events) beside the bound by bytes (``[binning]``); then one request
    of each benchmark cell through the cell's own program, every view
-   binned on the kernels by ``LAUNCHES_BIN`` and by the request's
-   ``bin_kernel_views`` counter (``[cell-binning]``);
+   preprocessed on ``csrc/preprocess.cu`` and binned on the kernels by
+   ``LAUNCHES_PREP`` / ``LAUNCHES_BIN`` and by the request's
+   ``prep_kernel_views`` / ``bin_kernel_views`` counters
+   (``[cell-binning]``), and the preprocess kernel at each cell's view 0
+   against ``fuse_view_features`` + ``preprocess`` (every field
+   bit-equal), both timed (CUDA events; the kernel's device time) beside
+   the bound by bytes (``[preprocess]``);
 6. aligned route: ``render_views_fused(use_pallas=True)`` renders the 12
    golden views (50 dB against the golden PNGs, and against the stream
    route's float images of the same run) and view 0 of the learned cell's
@@ -155,12 +160,13 @@ Phases, each printing what it found:
    of the headline, c1, c4 and c5 scenes and the training kernels at the
    demo's view 0 against their plain versions (max 1e-4 / mean 1e-6),
    timed beside their bounds;
-14. one JSON line describing the seven kernels (kernel 1 also with its
+14. one JSON line describing the eight kernels (kernel 1 also with its
    launches in the ``--shard tiles`` run and in one entry call; each blend
    kernel with its launches in the bench phase and its times at the
    benchmarks' shapes; the sparse conv with its per-pass times, bounds
    and fill at the learned cloud; the binning's ms per view and bound at
-   its two shapes), then the result line.
+   its two shapes; the preprocess's ms per view at each cell's view 0),
+   then the result line.
 
 It imports the port only (``gpcr_tpu_torch``) and fails if ``jax`` or any
 module of the JAX package got imported. It exits non-zero, printing no
@@ -301,7 +307,7 @@ def phase_build():
     from gpcr_tpu_torch.ops import cuda_build
 
     names = ("stream_blend", "stream_blend_bwd", "aligned_blend",
-             "sparse_conv", "patch_attn", "bin_stream")
+             "sparse_conv", "patch_attn", "bin_stream", "preprocess")
     t0 = time.time()
 
     def load(name):
@@ -321,13 +327,15 @@ def phase_build():
     # and spills, registers and shared memory); show C = 3 (the
     # rasterizer-only timing), 9 (analytic) and 12 (learned, training):
     # the serving and count forwards, the replay backward's two passes,
-    # every instantiation of the sparse convolution (BN, TM, KC), and the
-    # binning's four kernels beside the CUB radix sort's
+    # every instantiation of the sparse convolution (BN, TM, KC), the
+    # binning's four kernels beside the CUB radix sort's, and the
+    # preprocess kernel per SH degree
     for name in names:
         lines = cuda_build.BUILD_LOGS.get(name, "").splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry" in line and (name in (
-                    "sparse_conv", "patch_attn", "bin_stream") or any(
+                    "sparse_conv", "patch_attn", "bin_stream",
+                    "preprocess") or any(
                     f"ILi{c}E" in line for c in (3, 9, 12))):
                 for shown in lines[i:i + 4]:
                     log(f"[build] {name}: " + shown.strip())
@@ -606,11 +614,12 @@ def _learned_inputs(torch):
 
 
 def phase_learned(torch, B, RS):
+    from gpcr_tpu_torch.ops import preprocess as P
     from gpcr_tpu_torch.ops import sparse as TSP
 
     root, ckpt = _learned_inputs(torch)
     torch.cuda.reset_peak_memory_stats()
-    RS.LAUNCHES = RS.LAUNCHES_BIN = 0
+    RS.LAUNCHES = RS.LAUNCHES_BIN = P.LAUNCHES_PREP = 0
     TSP.LAUNCHES = 0
     res = B.main([
         "pcrender", "--ckpt", ckpt, "--id_list", "0519",
@@ -624,6 +633,7 @@ def phase_learned(torch, B, RS):
     ])
     launches = RS.LAUNCHES
     bin_launches = RS.LAUNCHES_BIN
+    prep_launches = P.LAUNCHES_PREP
     sparse_launches = TSP.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     out, timing = res["0519"]
@@ -637,16 +647,16 @@ def phase_learned(torch, B, RS):
         f"{timing['rgb_time']:.4f} s, {timing['rgb_time'] / 12 * 1e3:.2f} "
         f"ms/view, peak memory {peak / 2**30:.3f} GiB, coverage "
         f"{coverage:.4f}, dup_overflow {timing['dup_overflow']}, kernel "
-        f"launches {launches}, binning launches {bin_launches}, sparse conv "
-        f"launches {sparse_launches}")
+        f"launches {launches}, binning launches {bin_launches}, preprocess "
+        f"launches {prep_launches}, sparse conv launches {sparse_launches}")
     check(coverage > 0, "learned render covers no pixel")
     check(timing["dup_overflow"] == 0, "learned render dropped entries")
     check(launches > 0, "the learned path never launched the blend kernel")
     # the CLI renders its 12 views twice (a warm and a timed run), each view
-    # binned once on the kernels
-    check(bin_launches == launches == 2 * 12,
-          f"{bin_launches} binning and {launches} blend launches: not 12 per "
-          "render of the ring")
+    # preprocessed and binned once on the kernels
+    check(prep_launches == bin_launches == launches == 2 * 12,
+          f"{prep_launches} preprocess, {bin_launches} binning and "
+          f"{launches} blend launches: not 12 per render of the ring")
     # every conv of every encode (two per render) on the kernel
     check(sparse_launches > 0 and sparse_launches % UNET_CONVS == 0,
           f"{sparse_launches} sparse conv launches: not {UNET_CONVS} per "
@@ -1487,14 +1497,20 @@ def phase_cell_binning(torch, RS):
     """One request of each benchmark cell through the cell's own program
     (``cellbench``'s seeded inputs, program and cameras, after one warm
     request), recorded under ``trace.recording()``: every view of the
-    request binned on ``csrc/bin_stream.cu``, counted alike by
-    ``LAUNCHES_BIN`` and by the request's ``bin_kernel_views``. Returns
-    the views binned on the kernels per request, per cell."""
+    request preprocessed on ``csrc/preprocess.cu`` and binned on
+    ``csrc/bin_stream.cu``, counted alike by ``LAUNCHES_PREP`` /
+    ``LAUNCHES_BIN`` and by the request's ``prep_kernel_views`` /
+    ``bin_kernel_views``. Returns, per cell, the views binned and the
+    views preprocessed on the kernels in one request, and the arguments
+    of the request's first ``preprocess_view`` (view 0)."""
     from cellbench import harness, scene, systems
+    from gpcr_tpu_torch.ops import preprocess as P
+    from gpcr_tpu_torch.render import renderer as RD
     from gpcr_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
-    got = {}
+    bins, preps, view0 = {}, {}, {}
+    real = RD.preprocess_view
     for name in CELLS:
         cell = harness.load_cell(name)
         cfg, traffic = cell["config"], cell["traffic"]
@@ -1502,25 +1518,125 @@ def phase_cell_binning(torch, RS):
         inputs = system.make_inputs(cfg, CELL_SEED, dev)
         prog = system.Program(cfg, traffic, inputs, dev)
         cams = scene.Cameras(traffic, CELL_SEED, dev)
+        seen = []
+
+        def spy(*args):
+            if not seen:
+                seen.append(args)
+            return real(*args)
+
         with harness.quiet():
             prog(cams.warm(0), {})
             torch.cuda.synchronize()
-            before = RS.LAUNCHES_BIN
-            with trace.recording() as rec:
-                prog(cams.request(0), {})
-                torch.cuda.synchronize()
-        launches = RS.LAUNCHES_BIN - before
-        counted = {r: c["bin_kernel_views"] for r, c in rec.counters.items()
-                   if "bin_kernel_views" in c}
+            before = RS.LAUNCHES_BIN, P.LAUNCHES_PREP
+            RD.preprocess_view = spy
+            try:
+                with trace.recording() as rec:
+                    prog(cams.request(0), {})
+                    torch.cuda.synchronize()
+            finally:
+                RD.preprocess_view = real
+        launches = RS.LAUNCHES_BIN - before[0]
+        prep_launches = P.LAUNCHES_PREP - before[1]
+        counted = {k: {r: c[k] for r, c in rec.counters.items() if k in c}
+                   for k in ("bin_kernel_views", "prep_kernel_views")}
         log(f"[cell-binning] {name}: a request of {traffic['views']} views "
-            f"binned {launches} views on the kernels (LAUNCHES_BIN), "
-            f"bin_kernel_views by request {counted}")
-        check(launches == traffic["views"] and counted == {0: launches},
-              f"{name}: {launches} kernel binnings and bin_kernel_views "
-              f"{counted} in a request of {traffic['views']} views")
-        got[name] = launches
+            f"binned {launches} views on the kernels (LAUNCHES_BIN) and "
+            f"preprocessed {prep_launches} on the kernel (LAUNCHES_PREP); "
+            f"by request {counted}")
+        views = traffic["views"]
+        check(launches == prep_launches == views
+              and counted == {"bin_kernel_views": {0: views},
+                              "prep_kernel_views": {0: views}},
+              f"{name}: {launches} kernel binnings, {prep_launches} kernel "
+              f"preprocesses and counters {counted} in a request of {views} "
+              "views")
+        bins[name], preps[name], view0[name] = launches, prep_launches, seen[0]
         del prog, inputs
         torch.cuda.empty_cache()
+    return bins, preps, view0
+
+
+def _prep_bytes(args, prep):
+    """Bytes one view's preprocess must move at the least: each input byte
+    the kernel reads once (one row of a stride-0 input; opacity only for
+    opacity-aware rects; the SH rows the degree needs), each output byte
+    written once."""
+    settings, means, scales, rots, op, shs, normal, valid, config, wn = args
+    n = means.shape[0]
+    per = 12 + 12 + (3 * 4 * (settings.sh_degree + 1) ** 2)
+    per += 4 * config.opacity_radius + 12 * wn + (valid is not None)
+    read = n * per + 16 * (n if rots.stride(0) else 1)
+    written = sum(t.numel() * t.element_size() for t in prep[:7])
+    return read + written
+
+
+def phase_preprocess(torch, view0):
+    """The preprocess kernel at view 0 of each benchmark cell (the
+    arguments its program passed, ``phase_cell_binning``) against the
+    plain ops (``fuse_view_features`` then ``preprocess``): every field
+    bit-equal; both timed in turns plain / kernel / kernel / plain (CUDA
+    events over the whole call), the kernel's device time
+    (``torch.profiler``, 5 calls), beside the bound by bytes. Returns the
+    records for the kernels line, by cell."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpcr_tpu_torch.ops import preprocess as P
+    from gpcr_tpu_torch.ops import rasterize as R
+
+    got = {}
+    for name, args in view0.items():
+        (settings, means, scales, rots, op, shs, normal, valid, config,
+         with_normal) = args
+
+        def kernel():
+            return P.preprocess_view(*args)
+
+        def plain():
+            feats = P.fuse_view_features(settings.campos, means, shs, normal,
+                                         settings.sh_degree, with_normal)
+            return R.preprocess(means, op, settings, config, scales=scales,
+                                rotations=rots, colors_precomp=feats,
+                                valid_mask=valid)
+
+        with torch.no_grad():
+            before = P.LAUNCHES_PREP
+            k = kernel()
+            torch.cuda.synchronize()
+            check(P.LAUNCHES_PREP == before + 1,
+                  f"{name}: the preprocess did not run on the kernel")
+            p = plain()
+            for field, a, b in zip(k._fields, k, p):
+                a, b = a.contiguous(), b.contiguous()
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                check(a.dtype == b.dtype and bool(torch.equal(a, b)),
+                      f"{name}: the kernel's {field} differs from the plain "
+                      "ops'")
+            nbytes = _prep_bytes(args, k)
+            del k, p
+            p1 = _event_ms(torch, plain, 3)
+            k1 = _event_ms(torch, kernel, 20)
+            k2 = _event_ms(torch, kernel, 20)
+            p2 = _event_ms(torch, plain, 3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    kernel()
+                torch.cuda.synchronize()
+        device_ms = sum(e.device_time_total for e in prof.key_averages()
+                        if "preprocess_kernel" in e.key) / 5e3
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        n = means.shape[0]
+        log(f"[preprocess] {name} view 0: {n} splats, C = "
+            f"{12 if with_normal else 9}, SH degree {settings.sh_degree} of "
+            f"{shs.shape[1]} coefficients, {settings.image_width}²: kernel "
+            f"{k1:.4f} / {k2:.4f} ms (device {device_ms:.4f}), plain "
+            f"{p1:.4f} / {p2:.4f} ms (CUDA events); every field bit-equal; "
+            f"bound {bound_ms:.4f} ms by bytes ({nbytes} B at "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+        got[name] = dict(ms=min(k1, k2), device_ms=device_ms,
+                         plain_ms=min(p1, p2), bound_ms=bound_ms,
+                         bound_by="bytes", splats=n)
     return got
 
 
@@ -2129,6 +2245,7 @@ def _golden_view(torch, dev, debug, nan_at=None):
     ``render_views_fused`` does; with ``nan_at`` that gaussian's mean is
     NaN. Returns a function that renders it: the (9, 512, 512) image."""
     from gpcr_tpu_torch.io import read_ply
+    from gpcr_tpu_torch.ops import preprocess as P
     from gpcr_tpu_torch.ops import rasterize as R
     from gpcr_tpu_torch.render import renderer as RD
     from gpcr_tpu_torch.utils import sh as sh_utils
@@ -2152,8 +2269,9 @@ def _golden_view(torch, dev, debug, nan_at=None):
     bg3 = torch.ones((3,), device=dev)
     rp = RD.get_rasterize_param_from_camera(cam, m["fov"], bg=bg3, sh_degree=1,
                                             super_sample_rate=2)
-    feats, bg = RD.fuse_view_features(rp["campos"][0], means, shs,
-                                      torch.zeros_like(means), bg3, 1, False)
+    feats = P.fuse_view_features(rp["campos"][0], means, shs,
+                                 torch.zeros_like(means), 1, False)
+    bg = P.view_background(bg3, False)
     settings = R.GaussianRasterizationSettings(
         image_height=rp["height"], image_width=rp["width"],
         tanfovx=rp["tanfov"], tanfovy=rp["tanfov"], bg=bg, scale_modifier=1.0,
@@ -2991,6 +3109,7 @@ def phase_bench(torch, RS, RV):
     kernel 1's records per shape, kernels 2-3's at the demo shape, the
     headline's views binned on the kernels)."""
     from gpcr_tpu_torch import bench
+    from gpcr_tpu_torch.ops import preprocess as P
     from gpcr_tpu_torch.scripts import (bench_matrix, bench_pcrender,
                                         bench_train_step, train_demo)
     from gpcr_tpu_torch.train.data import DataLoader
@@ -2999,21 +3118,22 @@ def phase_bench(torch, RS, RV):
 
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     card = phase_device(torch)
-    RS.LAUNCHES_BIN = 0
+    RS.LAUNCHES_BIN = P.LAUNCHES_PREP = 0
     head, got = _counted(RS, RV, counts, lambda: bench.main([]))
-    bin_launches = RS.LAUNCHES_BIN
+    bin_launches, prep_launches = RS.LAUNCHES_BIN, P.LAUNCHES_PREP
     log(f"[bench] headline: {head['ms']:.4f} ms/frame median, per call "
         f"{head['times_ms']}, nonempty_tiles {head['nonempty_tiles']}, "
         f"dropped tiles / entries {head['dropped_tiles']} / "
         f"{head['dropped_entries']}, render_dup_overflow "
         f"{head['render_dup_overflow']}, tile_bin overflow "
         f"{head['overflow']}; serving launches {got[0]}, binning launches "
-        f"{bin_launches}; {card}")
+        f"{bin_launches}, preprocess launches {prep_launches}; {card}")
     check(math.isfinite(head["ms"]), "bench gave no finite ms per frame")
     check(got[0] == 6 * 16, f"bench launched the serving kernel {got[0]} "
           "times, not 16 views x (1 warm + 5 timed calls)")
-    check(bin_launches == 6 * 16, f"bench binned {bin_launches} views on the "
-          "kernels, not 16 per call of 16 views")
+    check(bin_launches == prep_launches == 6 * 16,
+          f"bench binned {bin_launches} and preprocessed {prep_launches} "
+          "views on the kernels, not 16 per call of 16 views")
     check(head["dropped_tiles"] == head["dropped_entries"]
           == head["render_dup_overflow"] == head["overflow"] == 0,
           "the headline frame dropped entries")
@@ -3194,7 +3314,9 @@ def main() -> int:
         splats = _learned_splats(torch, ckpt)
         serve, pairs, entries, work = run(phase_timing, torch, splats)
         binning = run(phase_binning, torch, splats)
-        cell_bins = run(phase_cell_binning, torch, RS)
+        cell_bins, cell_preps, view0 = run(phase_cell_binning, torch, RS)
+        prep_times = run(phase_preprocess, torch, view0)
+        del view0
         aligned_launches = run(phase_aligned_route, torch, B, RA, splats)
         aligned = run(phase_timing_aligned, torch, splats, pairs, entries,
                       work)
@@ -3237,7 +3359,9 @@ def main() -> int:
     # gathered patches, and its launches those of one PTv3 request;
     # bin_stream's launches are the views binned on the kernels in one
     # request of each cell (phase_cell_binning), its bench_launches those
-    # of phase_bench's headline run, its times per view at two shapes
+    # of phase_bench's headline run, its times per view at two shapes;
+    # preprocess's launches the views preprocessed on the kernel in the
+    # same requests, its times per view at each cell's view 0
     # entry_launches: kernel 1's launches in one call of the entry's fn;
     # bench_launches: each kernel's launches in phase_bench's entry points;
     # bench_shapes: the kernel at the benchmarks' shapes (kernel 1 at view 0
@@ -3282,6 +3406,9 @@ def main() -> int:
          "source": "gpcr_tpu_torch/csrc/bin_stream.cu", "replaces": None,
          "launches": cell_bins, "bench_launches": bench_bins,
          **binning, "library_ms": None},
+        {"name": "preprocess", "route": "cuda",
+         "source": "gpcr_tpu_torch/csrc/preprocess.cu", "replaces": None,
+         "launches": cell_preps, **prep_times, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,11 @@
 skeleton every route shares and the public dispatcher (port of
 ``gpcr_tpu/ops/rasterize.py``).
 
-A frame is ``rasterize_frame``: preprocess, a route's tile core (bin +
-blend + background of every tile), then tile assembly. The cores:
+A frame is ``rasterize_frame``: preprocess, then ``rasterize_prepared``: a
+route's tile core (bin + blend + background of every tile) and tile
+assembly. The renderer preprocesses its views with
+``ops/preprocess.py::preprocess_view`` (the fused feature row, on one CUDA
+kernel) and calls ``rasterize_prepared`` itself. The cores:
 
 - serving: ``rasterize_stream.STREAM`` (``blend_stream``; the blend
   launches the hand-written CUDA kernel for CUDA tensors and runs its
@@ -313,6 +316,23 @@ def rasterize_frame(
         raise ValueError(
             "Please provide exactly one of either scale/rotation pair or "
             "precomputed 3D covariance!")
+    with trace.span("gpcr.raster.preprocess"):
+        prep = preprocess(
+            means3d, opacities, settings, config,
+            scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
+            shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
+        )
+    return rasterize_prepared(core, prep, settings, config, return_extra)
+
+
+def rasterize_prepared(core: TileCore, prep: Preprocessed,
+                       settings: GaussianRasterizationSettings,
+                       config: RasterizeConfig = RasterizeConfig(),
+                       return_extra: bool = False):
+    """The frame after its preprocess (``rasterize_frame``'s tail, and
+    the renderer's after ``ops/preprocess.py::preprocess_view``): the
+    tiles through ``core``, then tile assembly; returns as
+    ``rasterize_frame``."""
     H, W = settings.image_height, settings.image_width
     if core.native:
         config = config._replace(downscale=1)
@@ -322,13 +342,6 @@ def rasterize_frame(
         raise ValueError("downscale requires even H/W/tile dims")
     grid_x = -(-W // config.tile_x)
     num_tiles = grid_x * -(-H // config.tile_y)
-
-    with trace.span("gpcr.raster.preprocess"):
-        prep = preprocess(
-            means3d, opacities, settings, config,
-            scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
-            shs=shs, colors_precomp=colors_precomp, valid_mask=valid_mask,
-        )
     out, t_run, overflow = core.blend(prep, settings.bg, num_tiles, grid_x,
                                       config, prep.features.shape[-1])
     with trace.span("gpcr.raster.epilogue"):

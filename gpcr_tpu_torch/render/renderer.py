@@ -5,8 +5,9 @@ the projection / raster-settings builders, ``pcgc_rescale`` and
 ``world_splats``.
 
 All outputs of a view — rgb, world xyz, hit map and (learned path)
-normal — are feature channels of ONE rasterizer pass
-(``fuse_view_features``, read back by ``split_view_channels``), and on
+normal — are feature channels of ONE rasterizer pass (written by
+``ops/preprocess.py::preprocess_view``, on the card in the preprocess
+kernel's launch, read back by ``split_view_channels``), and on
 the serving route the x2 supersampling downscale is folded into the
 blend kernel's tile write. Views render in one Python loop,
 ``render_views_fused``, whatever the route: serving, differentiable
@@ -35,6 +36,7 @@ from ..ops import rasterize as R
 from ..ops import rasterize_aligned as RA
 from ..ops import rasterize_stream as RS
 from ..ops import sparse
+from ..ops.preprocess import preprocess_view, view_background
 from ..parallel.distributed import get_world_size, is_main
 from ..parallel.render import tile_sharded_core
 from ..parallel.sharding import Mesh, make_mesh
@@ -165,27 +167,10 @@ def bilinear_resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def fuse_view_features(campos, means3d, shs, normal, bg3, sh_degree,
-                       with_normal):
-    """Per-view fused features [rgb | xyz | ones | (camera-facing normal)]
-    and their per-channel background [bg3, bg3, bg3 (, bg3)]; the layout
-    ``split_view_channels`` reads back."""
-    rgb = sh_utils.eval_sh_color(sh_degree, shs, means3d, campos)
-    feats = [rgb, means3d, torch.ones_like(means3d)]
-    bgs = [bg3, bg3, bg3]
-    if with_normal:
-        cam_dir = means3d - campos[None, :]
-        sgn = (torch.sum(cam_dir * normal, -1, keepdim=True) > 0).to(
-            torch.float32) * 2.0 - 1.0
-        feats.append(normal * (-1.0) * sgn)
-        bgs.append(bg3)
-    return torch.cat(feats, dim=-1), torch.cat(bgs, dim=-1)
-
-
 def split_view_channels(colors: torch.Tensor, with_normal: bool) -> dict:
-    """(q, C, h, w) images of ``fuse_view_features``' layout -> {"rgb",
-    "xyz_w", "hitmap", "normal"} of (q, h, w, 3) (normal None without
-    ``with_normal``)."""
+    """(q, C, h, w) images of ``ops/preprocess.py::fuse_view_features``'
+    layout -> {"rgb", "xyz_w", "hitmap", "normal"} of (q, h, w, 3) (normal
+    None without ``with_normal``)."""
     out = {k: colors[:, i:i + 3].permute(0, 2, 3, 1)
            for k, i in (("rgb", 0), ("xyz_w", 3), ("hitmap", 6))}
     out["normal"] = (colors[:, 9:12].permute(0, 2, 3, 1) if with_normal
@@ -199,23 +184,22 @@ def render_view(
     bg3, tanfov, height, width, sh_degree, config: R.RasterizeConfig,
     with_normal: bool, core: T.Optional[R.TileCore] = None,
 ):
-    """Render one view with all output channels fused into one pass of
-    ``R.rasterize_frame`` through ``core`` (default ``R.route_core``:
+    """Render one view with all output channels fused into one pass:
+    ``preprocess_view`` (on the card one kernel launch), then
+    ``R.rasterize_prepared`` through ``core`` (default ``R.route_core``:
     gradients flow when ``config.differentiable``). Returns (color (C, h,
     w), dup_overflow ())."""
-    with trace.span("gpcr.raster.features"):
-        features, bg = fuse_view_features(
-            campos, means3d, shs, normal, bg3, sh_degree, with_normal)
     settings = R.GaussianRasterizationSettings(
         image_height=height, image_width=width, tanfovx=tanfov,
-        tanfovy=tanfov, bg=bg, scale_modifier=1.0, viewmatrix=view_t,
-        projmatrix=full_t, sh_degree=sh_degree, campos=campos,
+        tanfovy=tanfov, bg=view_background(bg3, with_normal),
+        scale_modifier=1.0, viewmatrix=view_t, projmatrix=full_t,
+        sh_degree=sh_degree, campos=campos,
     )
-    color, _, extra = R.rasterize_frame(
-        core or R.route_core(config), means3d, opacity, settings,
-        scales=scales, rotations=rotations, colors_precomp=features,
-        valid_mask=valid, config=config, return_extra=True,
-    )
+    prep = preprocess_view(settings, means3d, scales, rotations, opacity,
+                           shs, normal, valid, config, with_normal)
+    color, _, extra = R.rasterize_prepared(
+        core or R.route_core(config), prep, settings, config,
+        return_extra=True)
     return color, extra["dup_overflow"]
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import preprocess as P
 from ..ops import rasterize as R
 from ..ops import rasterize_stream as RS
 from ..render import renderer as RD
@@ -67,9 +68,9 @@ def view0_prep(sp: dict):
     binnings take): (prep, channels, raster size)."""
     rp = sp["rp"]
     with torch.no_grad():
-        feats, bg = RD.fuse_view_features(
-            rp["campos"][0], sp["means"], sp["sh"], sp["normal"], sp["bg3"], 1,
-            True)
+        feats = P.fuse_view_features(rp["campos"][0], sp["means"], sp["sh"],
+                                     sp["normal"], 1, True)
+        bg = P.view_background(sp["bg3"], True)
         settings = R.GaussianRasterizationSettings(
             rp["height"], rp["width"], rp["tanfov"], rp["tanfov"], bg, 1.0,
             rp["view_t"][0], rp["full_t"][0], 1, rp["campos"][0])
@@ -124,9 +125,9 @@ def train_view0(trainer, n_points: int, hw: int, scale_factor: int = 448):
          with_normal) = trainer._encode_splats(
              batch["coords"][0], batch["rgb"][0], batch["valid"][0])
         campos = batch["campos"][0, 0]
-        feats, bg = RD.fuse_view_features(
-            campos, means, sh, normal, torch.zeros(3, device=dev),
-            trainer.info.sh_deg, with_normal)
+        feats = P.fuse_view_features(campos, means, sh, normal,
+                                     trainer.info.sh_deg, with_normal)
+        bg = P.view_background(torch.zeros(3, device=dev), with_normal)
         settings = R.GaussianRasterizationSettings(
             hw, hw, batch["tanfov"], batch["tanfov"], bg, 1.0,
             batch["view_t"][0, 0], batch["full_t"][0, 0], trainer.info.sh_deg,
@@ -188,9 +189,9 @@ def bench_view0_prep(scene: dict, config: R.RasterizeConfig):
     if H == 2 * scene["out_h"] and W == 2 * scene["out_w"]:
         config = config._replace(downscale=2)
     with torch.no_grad():
-        feats, bg = RD.fuse_view_features(
-            rp["campos"][0], scene["means"], scene["shs"], scene["normal"],
-            scene["bg3"], 1, False)
+        feats = P.fuse_view_features(rp["campos"][0], scene["means"],
+                                     scene["shs"], scene["normal"], 1, False)
+        bg = P.view_background(scene["bg3"], False)
         settings = R.GaussianRasterizationSettings(
             H, W, rp["tanfov"], rp["tanfov"], bg, 1.0, rp["view_t"][0],
             rp["full_t"][0], 1, rp["campos"][0])

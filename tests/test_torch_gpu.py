@@ -3,6 +3,8 @@ stream blend (with its warp-level culling), the contributor-count
 forward and the aligned all-tiles blend (both walking a chunk ring), the
 replay backward (tiles split into segments); the binning kernels
 (``csrc/bin_stream.cu``, bit-equal to ``bin_sorted_stream_plain``); the
+preprocess kernel (``csrc/preprocess.cu``, bit-equal to
+``fuse_view_features`` and ``preprocess``); the
 U-Net's sparse convolution (``csrc/sparse_conv.cu``, its own tolerance
 below); and the
 data path's torch
@@ -35,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpcr_tpu_torch.ops import preprocess as TP
 from gpcr_tpu_torch.ops import rasterize as TR
 from gpcr_tpu_torch.ops import rasterize_aligned as TRA
 from gpcr_tpu_torch.ops import rasterize_stream as TRS
@@ -43,7 +46,8 @@ from gpcr_tpu_torch.render.renderer import pin_fp32
 from gpcr_tpu_torch.structures.camera import derive_camera_intrinsics
 from gpcr_tpu_torch.utils import rigid_motion as TRM
 
-from torch_streams import aligned_layout, ring_tiles, tile_stream
+from torch_streams import (aligned_layout, preprocess_scene, ring_tiles,
+                           tile_stream)
 
 pin_fp32()  # parity precision: full-float32 matmuls, no TF32 on a card
 
@@ -275,12 +279,10 @@ def test_binning_kernels_match_plain(cuda, case, channels):
         assert stream.shape[0] == emitted  # the budget cuts nothing
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("kind,views", [("learned", 12), ("analytic", 16)])
-def test_every_view_of_a_request_bins_on_the_kernels(cuda, kind, views):
-    """A request of a learned ring (12 views) and of an analytic orbit
-    (16 views), recorded: ``LAUNCHES_BIN`` and the request's
-    ``bin_kernel_views`` counter both count every view."""
+def _recorded_request(cuda, kind, views):
+    """One request of a learned ring (dup cap 256, opacity-aware rects) or
+    an analytic orbit (dup cap 4) of ``views`` 32² views of a 3,000-point
+    cloud on the card, under ``trace.recording()``: the recorder."""
     from gpcr_tpu_torch.cli.profile_pcrender import (LEARNED_INFO,
                                                      synthetic_cloud)
     from gpcr_tpu_torch.render import renderer as RD
@@ -302,13 +304,127 @@ def test_every_view_of_a_request_bins_on_the_kernels(cuda, kind, views):
         rdr = RD.SimpleRender(voxelized=True, scale_factor=448,
                               config=TR.RasterizeConfig(
                                   max_dup_per_gaussian=4, chunk_size=256))
-    before = TRS.LAUNCHES_BIN
     with trace.recording() as rec:
         rdr.render(pcd, None, cam, 45, background_color=1.0)
         torch.cuda.synchronize()
+    return rec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,views", [("learned", 12), ("analytic", 16)])
+def test_every_view_of_a_request_bins_on_the_kernels(cuda, kind, views):
+    """A request of a learned ring (12 views) and of an analytic orbit
+    (16 views), recorded: ``LAUNCHES_BIN`` and the request's
+    ``bin_kernel_views`` counter both count every view."""
+    before = TRS.LAUNCHES_BIN
+    rec = _recorded_request(cuda, kind, views)
     assert TRS.LAUNCHES_BIN == before + views
     assert {r: c["bin_kernel_views"] for r, c in rec.counters.items()
             if "bin_kernel_views" in c} == {0: views}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,views", [("learned", 12), ("analytic", 16)])
+def test_every_view_of_a_request_preprocesses_on_the_kernel(cuda, kind,
+                                                            views):
+    """The same requests: ``LAUNCHES_PREP`` and the request's
+    ``prep_kernel_views`` counter both count every view."""
+    before = TP.LAUNCHES_PREP
+    rec = _recorded_request(cuda, kind, views)
+    assert TP.LAUNCHES_PREP == before + views
+    assert {r: c["prep_kernel_views"] for r, c in rec.counters.items()
+            if "prep_kernel_views" in c} == {0: views}
+
+
+def _float_bits_equal(got, ref):
+    """Bit for bit, a NaN equal to a NaN."""
+    got, ref = got.contiguous(), ref.contiguous()
+    same = got.view(torch.int32) == ref.view(torch.int32)
+    return bool((same | (torch.isnan(got) & torch.isnan(ref))).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("layout", ["learned", "analytic"])
+def test_preprocess_kernel_matches_plain(cuda, layout, degree):
+    """``preprocess_view`` on ``csrc/preprocess.cu`` gives every field of
+    ``fuse_view_features`` + ``preprocess`` on the card bit for bit, on
+    scenes that hold each case the kernel decides (``preprocess_scene``),
+    and ``LAUNCHES_PREP`` counts the launch."""
+    (settings, means, scales, rots, op, shs, normal, valid, config,
+     with_normal) = preprocess_scene(layout, degree, cuda)
+    before = TP.LAUNCHES_PREP
+    with torch.no_grad():
+        got = TP.preprocess_view(settings, means, scales, rots, op, shs,
+                                 normal, valid, config, with_normal)
+        torch.cuda.synchronize()
+        assert TP.LAUNCHES_PREP == before + 1
+        feats = TP.fuse_view_features(settings.campos, means, shs, normal,
+                                      degree, with_normal)
+        ref = TR.preprocess(means, op, settings, config, scales=scales,
+                            rotations=rots, colors_precomp=feats,
+                            valid_mask=valid)
+    assert TP.LAUNCHES_PREP == before + 1
+    assert got.features.shape == (means.shape[0], 12 if with_normal else 9)
+    for name in ("valid", "rect"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    for name in ("depth", "mean2d", "conic", "radius", "features",
+                 "opacity"):
+        assert _float_bits_equal(getattr(got, name), getattr(ref, name)), name
+    # each case the scene is built for is reached
+    depth, rect, radius = ref.depth, ref.rect, ref.radius
+    assert bool((depth <= 0.2).any())  # behind the near plane
+    assert bool(((rect[:, 2] == rect[:, 0]) & (depth > 0.2)).any())
+    assert not bool(valid.all())
+    # the rank-one splat: det 0, so det_inv 1 and no radius
+    assert not bool(ref.valid[-1]) and float(ref.conic[-1, 0]) > 1e6
+    assert float(radius[-1]) == 0.0 and float(depth[-1]) > 0.2
+    if config.opacity_radius:  # opacity <= 1/255: binned nowhere, reported
+        assert bool((~ref.valid & (radius > 0)).any())
+    assert bool(ref.valid.sum() > means.shape[0] // 2)
+
+
+@pytest.mark.gpu
+def test_a_gradient_keeps_the_plain_preprocess(cuda):
+    """The dispatch on the card: inputs that require a gradient, under
+    autograd, and ``config.differentiable`` take the plain ops (the
+    features record a gradient, no launch); the same inputs under
+    ``no_grad`` launch the kernel."""
+    (settings, means, scales, rots, op, shs, normal, valid, config,
+     with_normal) = preprocess_scene("learned", 1, cuda, n=500)
+    shs.requires_grad_(True)
+    args = (settings, means, scales, rots, op, shs, normal, valid)
+    before = TP.LAUNCHES_PREP
+    prep = TP.preprocess_view(*args, config, with_normal)
+    assert prep.features.requires_grad and TP.LAUNCHES_PREP == before
+    prep.features[:, :3].sum().backward()
+    assert float(shs.grad.abs().sum()) > 0
+    with torch.no_grad():
+        TP.preprocess_view(*args, config._replace(differentiable=True),
+                           with_normal)
+        assert TP.LAUNCHES_PREP == before
+        TP.preprocess_view(*args, config, with_normal)
+    assert TP.LAUNCHES_PREP == before + 1
+
+
+@pytest.mark.gpu
+def test_refused_preprocess_launch_raises(cuda):
+    """A launch the library refuses (an SH degree above 4) raises instead
+    of returning the empty outputs, and a float64 input raises before the
+    launch; neither counts."""
+    (settings, means, scales, rots, op, shs, normal, valid, config,
+     with_normal) = preprocess_scene("learned", 4, cuda, n=500)
+    shs = torch.cat([shs, shs], dim=1)  # 50 coefficients: enough for 6
+    before = TP.LAUNCHES_PREP
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="preprocess launch failed"):
+            TP.preprocess_view(settings._replace(sh_degree=5), means, scales,
+                               rots, op, shs, normal, valid, config,
+                               with_normal)
+        with pytest.raises(TypeError):
+            TP.preprocess_view(settings, means.double(), scales, rots, op,
+                               shs, normal, valid, config, with_normal)
+    assert TP.LAUNCHES_PREP == before
 
 
 @pytest.mark.gpu

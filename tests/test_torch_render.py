@@ -28,6 +28,8 @@ from gpcr_tpu_torch.render import renderer as TRD
 from gpcr_tpu_torch.structures.camera import Camera
 from gpcr_tpu_torch.structures.pointcloud import PointCloud
 
+from torch_streams import preprocess_scene
+
 # one intra-op thread: under xdist each worker would start torch's pool
 # of a thread per CPU, and the oversubscribed pools slowed a 16 px train
 # step from 0.15 s to 95 s (6 workers on 8 CPUs)
@@ -430,3 +432,38 @@ def test_render_views_fused_aligned_route_matches_jax(monkeypatch):
     assert int(stream["dup_overflow"].sum()) > 0
     np.testing.assert_allclose(got["rgb"].numpy(), stream["rgb"].numpy(),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("requires_grad", [False, True])
+@pytest.mark.parametrize("layout", ["learned", "analytic"])
+def test_preprocess_view_on_the_cpu_takes_the_plain_ops(monkeypatch, layout,
+                                                       requires_grad):
+    """``ops/preprocess.py::preprocess_view``'s dispatch for CPU tensors,
+    with and without an input that requires a gradient: no kernel call,
+    and every field as ``fuse_view_features`` then ``preprocess`` give it
+    (gradients recorded when asked)."""
+    from gpcr_tpu_torch.ops import preprocess as TP
+    from gpcr_tpu_torch.ops import rasterize as TR
+
+    (settings, means, scales, rots, op, shs, normal, valid, config,
+     with_normal) = preprocess_scene(layout, 1, "cpu", n=600)
+    means.requires_grad_(requires_grad)
+
+    def refused(*a, **kw):
+        raise AssertionError("the kernel path was taken on the CPU")
+
+    monkeypatch.setattr(TP, "_preprocess_view_cuda", refused)
+    before = TP.LAUNCHES_PREP
+    got = TP.preprocess_view(settings, means, scales, rots, op, shs, normal,
+                             valid, config, with_normal)
+    assert TP.LAUNCHES_PREP == before
+    feats = TP.fuse_view_features(settings.campos, means, shs, normal, 1,
+                                  with_normal)
+    ref = TR.preprocess(means, op, settings, config, scales=scales,
+                        rotations=rots, colors_precomp=feats,
+                        valid_mask=valid)
+    assert got.features.shape == (600, 12 if with_normal else 9)
+    for name, g, r in zip(got._fields, got, ref):
+        assert torch.equal(g, r), name
+    assert got.features.requires_grad == requires_grad
+    assert got.mean2d.requires_grad == requires_grad

@@ -169,6 +169,7 @@ def test_learned_counters(scene, binned_rows):
         assert 0 < c["tiles_rendered"] <= VIEWS * (64 // 16) ** 2
         assert "device_allocs" not in c  # counted on a CUDA device only
         assert "bin_kernel_views" not in c  # the CPU bins plainly
+        assert "prep_kernel_views" not in c  # and preprocesses plainly
 
 
 def test_analytic_counters(scene, binned_rows):
@@ -183,6 +184,7 @@ def test_analytic_counters(scene, binned_rows):
     assert c["tiles_rendered"] == VIEWS * 3  # max_active_tiles per view
     assert "voxels" not in c and "plan_builds" not in c
     assert "bin_kernel_views" not in c  # the CPU bins plainly
+    assert "prep_kernel_views" not in c  # and preprocesses plainly
 
 
 def test_render_span_on_the_profiler_clock(scene):

@@ -1,6 +1,7 @@
 """Seeded tile streams for the port's blend-kernel tests
 (``test_torch_gpu.py`` on the card, ``test_torch_stream_vjp.py`` on the
-CPU). Imports no JAX."""
+CPU), and the seeded splats of the preprocess tests
+(``test_torch_gpu.py``, ``test_torch_render.py``). Imports no JAX."""
 
 import numpy as np
 import torch
@@ -109,3 +110,59 @@ def aligned_layout(stream, starts, chunk, channels):
     slots = slots.reshape(-1, chunk, 6 + channels).transpose(1, 2)
     return (cstarts.to(torch.int32), slots[:, :6].contiguous(),
             slots[:, 6:].contiguous())
+
+
+def preprocess_scene(layout, degree, device, n=4000, res=128, seed=5):
+    """Seeded splats of one view (``ops/preprocess.py::preprocess_view``'s
+    arguments after ``settings``, on ``device``): (settings, means, scales,
+    rotations, opacity, shs, normal, valid, config, with_normal).
+
+    ``layout`` "learned": C = 12 with normals, opacity-aware rects,
+    (n, (degree + 1)², 3) SH; "analytic": C = 9, no normals, (n, 13, 3) SH
+    (more when the degree needs them) and the last splat's rotation
+    expanded to all. Camera at the origin looking down +z (tanfov 1,
+    ``res``²). Every scene holds splats behind the near plane, off
+    screen, masked out, of opacity <= 1/255, and last a rank-one
+    covariance along x = y at the centre whose projected determinant is
+    exactly 0."""
+    from gpcr_tpu_torch.ops import rasterize as R
+
+    rng = np.random.RandomState(seed + degree)
+    means = (rng.randn(n, 3) * 0.4 + (0, 0, 2.5)).astype(np.float32)
+    tenth = n // 10
+    means[:tenth, 2] = rng.uniform(-1.0, 0.25, tenth)  # behind the near plane
+    means[tenth:2 * tenth, 0] += 5.0  # off screen
+    scales = (rng.rand(n, 3) * 0.05 + 0.001).astype(np.float32)
+    rots = rng.randn(n, 4).astype(np.float32)
+    means[-1], scales[-1] = (0, 0, 2.5), (1e3, 0, 0)
+    rots[-1] = (0.5, 0, 0, 0.5)
+    op = rng.rand(n).astype(np.float32)
+    op[2 * tenth:3 * tenth] = rng.uniform(0, 1 / 255, tenth)
+    k = (degree + 1) ** 2
+    if layout == "analytic":
+        k = max(13, k)
+    shs = (rng.randn(n, k, 3) * 0.5).astype(np.float32)
+    normal = rng.randn(n, 3).astype(np.float32)
+    valid = rng.rand(n) > 0.1
+    valid[-1] = True
+    P = np.zeros((4, 4), np.float32)
+    P[0, 0] = P[1, 1] = 1.0
+    P[3, 2] = 1.0
+    P[2, 2] = 100.0 / (100.0 - 0.01)
+    P[2, 3] = -(100.0 * 0.01) / (100.0 - 0.01)
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    with_normal = layout == "learned"
+    settings = R.GaussianRasterizationSettings(
+        image_height=res, image_width=res, tanfovx=1.0, tanfovy=1.0,
+        bg=torch.zeros(12 if with_normal else 9, device=device),
+        scale_modifier=1.0, viewmatrix=torch.eye(4, device=device),
+        projmatrix=t(P.T.copy()), sh_degree=degree,
+        campos=torch.zeros(3, device=device))
+    # analytic: the last splat's rotation, stride 0
+    rotations = t(rots) if with_normal else t(rots[-1]).expand(n, 4)
+    config = R.RasterizeConfig(opacity_radius=with_normal)
+    return (settings, t(means), t(scales), rotations, t(op), t(shs),
+            t(normal), t(valid), config, with_normal)
