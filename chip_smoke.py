@@ -262,11 +262,18 @@ SPARSE_REL, SPARSE_ABS = 1e-5, 1e-7
 PTV3_BLOCKS, ATTN_ABS, PTV3_TOL = 22, 1e-5, 1e-4
 # the benchmark's cells (cellbench/workloads/) and the seed of their one
 # request each in phase_cell_binning
-CELLS = ("pcml800k.circle12", "ptv3_800k.circle12", "splat800k.orbit16")
+CELLS = ("pcml800k.circle12", "ptv3_800k.circle12", "splat800k.orbit16",
+         "ptv2_800k.circle12", "splat800k.orbit1")
 CELL_SEED = 2**31 + 101
 # PTv3's sparse convs per encode: the 5³ stem as five launches of 25
 # offsets, and one 3³ CPE conv per block
 PTV3_CONVS = 5 + PTV3_BLOCKS
+# PTv2: grouped vector attentions per pass (patch embedding 1, encoder
+# 2 2 6 2, decoder 1 1 1 1); the GVA kernel against its plain version
+# (the same folded function, float32 sums in other orders) relative to
+# the plain output's largest value; the backbone against the benchmark
+# reference (unfolded) through 17 blocks
+PTV2_BLOCKS, GVA_REL, PTV2_TOL = 17, 1e-5, 1e-4
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -307,7 +314,7 @@ def phase_build():
     from gpcr_tpu_torch.ops import cuda_build
 
     names = ("stream_blend", "stream_blend_bwd", "aligned_blend",
-             "sparse_conv", "patch_attn", "bin_stream", "preprocess")
+             "sparse_conv", "patch_attn", "bin_stream", "preprocess", "gva")
     t0 = time.time()
 
     def load(name):
@@ -335,7 +342,7 @@ def phase_build():
         for i, line in enumerate(lines):
             if "Compiling entry" in line and (name in (
                     "sparse_conv", "patch_attn", "bin_stream",
-                    "preprocess") or any(
+                    "preprocess", "gva") or any(
                     f"ILi{c}E" in line for c in (3, 9, 12))):
                 for shown in lines[i:i + 4]:
                     log(f"[build] {name}: " + shown.strip())
@@ -1093,6 +1100,187 @@ def phase_ptv3(torch):
                 convs=conv_by,
                 **{f"attn_{k}": v for k, v in total.items()},
                 library_ms=library_ms)
+
+
+def phase_ptv2(torch):
+    """Point Transformer V2 (``model_type`` "ptv2", Pointcept's m2 base
+    widths) through its cell's own program (``ptv2_800k.circle12``: the
+    cell's seeded cloud, weights and cameras): the launch counters are
+    reset just before one ``PCMLRender.render`` of the 12-view ring at 512²
+    x2 (two encodes), which must launch PTV2_BLOCKS grouped vector
+    attentions per encode and no sparse conv or patch attention. Then, on
+    the renderer's grid and cached plan: a plan build timed (its kNN apart)
+    and held against the reference's geometry (brute-force kNN, pooling):
+    0 neighbour-list mismatches at every level; every attention of one
+    pass held against the plain version (GVA_REL) and timed (CUDA events)
+    beside its least-work bound and the plain version (``[ptv2-gva]`` per
+    level); the backbone against the reference (PTV2_TOL). Returns the
+    record for the kernels line."""
+    from cellbench import harness, scene, systems
+    from cellbench.reference import network
+    from cellbench.reference import ptv2 as REF
+    from gpcr_tpu_torch.ops import gva as GV
+    from gpcr_tpu_torch.ops import knn as KN
+    from gpcr_tpu_torch.ops import patch_attn as PA
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    dev = torch.device("cuda")
+    cell = harness.load_cell("ptv2_800k.circle12")
+    cfg, traffic = cell["config"], cell["traffic"]
+    system = systems.load(cfg["renderer"])
+    inputs = system.make_inputs(cfg, CELL_SEED, dev)
+    prog = system.Program(cfg, traffic, inputs, dev)
+    cams = scene.Cameras(traffic, CELL_SEED, dev)
+    timing = {}
+    torch.cuda.synchronize()
+    GV.LAUNCHES = PA.LAUNCHES = TSP.LAUNCHES = 0
+    with harness.quiet():
+        out = prog(cams.request(0), timing)
+    torch.cuda.synchronize()
+    launches = GV.LAUNCHES
+    for k in ("rgb", "xyz_w", "hitmap", "normal"):
+        check(tuple(out[k].shape) == (1, 12, 512, 512, 3)
+              and bool(torch.isfinite(out[k]).all()),
+              f"the PTv2 render's {k} is not a finite (1, 12, 512, 512, 3)")
+    coverage = float((out["hitmap"] > 0).any(-1).float().mean())
+    log(f"[ptv2] render of 12 views at 512² x2 (the plan built in it): "
+        f"model time {timing['model_time']:.4f} s, rgb time "
+        f"{timing['rgb_time']:.4f} s, coverage {coverage:.4f}, "
+        f"dup_overflow {timing['dup_overflow']}, gva launches {launches}, "
+        f"patch attention {PA.LAUNCHES}, sparse conv {TSP.LAUNCHES}")
+    check(coverage > 0, "the PTv2 render covers no pixel")
+    check(launches == 2 * PTV2_BLOCKS and PA.LAUNCHES == TSP.LAUNCHES == 0,
+          f"{launches} gva, {PA.LAUNCHES} patch attention and "
+          f"{TSP.LAUNCHES} sparse conv launches in a request: not "
+          f"{PTV2_BLOCKS} gva per encode and nothing else")
+    del out
+
+    rdr = prog.rdr
+    model = rdr.model.color_encoder
+    knn_s, real_knn = [], KN.knn
+
+    def timed_knn(*args):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = real_knn(*args)
+        torch.cuda.synchronize()
+        knn_s.append(time.perf_counter() - t1)
+        return got
+
+    with torch.no_grad():
+        _, grid, plan = rdr.encode(prog.pcd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        KN.knn = timed_knn
+        try:
+            model.build_plan(grid)
+        finally:
+            KN.knn = real_knn
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        s = REF.settings(cfg["pcml_info"])
+        vox, _ = network.voxelize(inputs["xyz"], inputs["rgb"])
+        t0 = time.perf_counter()
+        levels = REF.hierarchy(vox, s)
+        ref_s = time.perf_counter() - t0
+    mismatches = []
+    for got, want in zip(plan["levels"], levels):
+        check(got.n == want.n, f"a plan level of {got.n} points, the "
+              f"reference's {want.n}")
+        mismatches.append(int((got.nbr.long() != want.nbr).any(1).sum()))
+        check(torch.equal(got.delta, want.delta) and (
+            want.cluster is None or torch.equal(got.cluster, want.cluster)),
+            "the plan's relative positions or clusters differ from the "
+            "reference's")
+    log(f"[ptv2-knn] levels {[lv.n for lv in plan['levels']]}: plan "
+        f"{plan_s:.3f} s, kNN {[round(t, 4) for t in knn_s]} s "
+        f"(reference brute force and pooling {ref_s:.1f} s); neighbour-list "
+        f"mismatches against the reference per level {mismatches}")
+    check(sum(mismatches) == 0, f"kNN mismatches {mismatches}")
+    del levels
+
+    calls, real = [], GV.grouped_vector_attention
+    level_of = {id(lv.nbr): i for i, lv in enumerate(plan["levels"])}
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    GV.grouped_vector_attention = record
+    try:
+        with torch.no_grad():
+            model.backbone(grid, plan)
+    finally:
+        GV.grouped_vector_attention = real
+    check(len(calls) == PTV2_BLOCKS, f"{len(calls)} attentions in a pass")
+    records, worst = [], 0.0
+    for args in calls:
+        q, k, v, nbr, delta, kk, f = args
+        n, c = q.shape
+        g = f.m.shape[0]
+        with torch.no_grad():
+            got, ref = real(*args), GV.gva_plain(*args)
+            err = float((got - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            check(rel <= GVA_REL, f"gva at {c} channels, {kk} neighbours "
+                  f"disagrees with its plain version: max|d| {err} "
+                  f"({rel:.2e} of the largest output)")
+            check(torch.equal(got, real(*args)), f"gva at {c} channels: "
+                  "another launch gave other bits")
+            del got, ref
+            ms = _event_ms(torch, lambda: real(*args), 5)
+            plain_ms = _event_ms(torch, lambda: GV.gva_plain(*args), 1,
+                                 warmup=0)
+        ops = REF.gva_least_ops(n, kk, c, g)
+        nbytes = REF.gva_least_bytes(n, kk, c, g)
+        records.append(dict(level=level_of[id(nbr)], n=n, k=kk, c=c, ms=ms,
+                            plain_ms=plain_ms,
+                            bound_ms=max(ops / PEAK_FLOPS,
+                                         nbytes / PEAK_BYTES) * 1e3))
+    del calls
+    by = {}
+    for r in records:
+        agg = by.setdefault(r["level"], dict(launches=0, c=r["c"], ms=0.0,
+                                             plain_ms=0.0, bound_ms=0.0))
+        agg["launches"] += 1
+        for key in ("ms", "plain_ms", "bound_ms"):
+            agg[key] += r[key]
+    for lvl, agg in sorted(by.items()):
+        log(f"[ptv2-gva] level {lvl} ({plan['levels'][lvl].n} points, C "
+            f"{agg['c']}): {agg['launches']} launches, kernel "
+            f"{agg['ms']:.4f} ms, bound {agg['bound_ms']:.4f} ms "
+            f"({agg['bound_ms'] / agg['ms']:.1%}), plain "
+            f"{agg['plain_ms']:.2f} ms")
+
+    with torch.no_grad():
+        pass_ms = _event_ms(torch, lambda: model(grid, plan), 3)
+        got = model.backbone(grid, plan)
+        _, _, want, _, _ = REF.backbone(inputs["xyz"], inputs["rgb"],
+                                        inputs["weights"], s,
+                                        cfg["cloud"]["scale_factor"])
+    pass_err = float((got - want).abs().max())
+    log(f"[ptv2] backbone against the reference: max|d| {pass_err:.3e} on "
+        f"outputs of max {float(want.abs().max()):.3f}, rms "
+        f"{float(want.pow(2).mean().sqrt()):.3f}")
+    check(pass_err <= PTV2_TOL, f"the PTv2 pass disagrees with the "
+          f"reference: max|d| {pass_err}")
+    total = {k: sum(r[k] for r in records)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[ptv2] per pass: {len(records)} gva launches, kernels "
+        f"{total['ms']:.4f} ms (bound {total['bound_ms']:.4f} ms, "
+        f"{total['bound_ms'] / total['ms']:.1%}), plain "
+        f"{total['plain_ms']:.1f} ms; PTv2 pass {pass_ms:.4f} ms; worst "
+        f"gva relative max|d| {worst:.3e}, pass against the reference "
+        f"{pass_err:.3e}")
+    del prog, inputs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, pass_ms=pass_ms, plan_s=plan_s,
+                knn_s=knn_s, knn_mismatches=mismatches,
+                max_rel_err=worst, pass_max_abs_err=pass_err,
+                per_level={f"L{lvl}": agg for lvl, agg in by.items()},
+                **{f"gva_{k}": v for k, v in total.items()},
+                library_ms=None)
 
 
 def _sdpa_patches(torch, qkv, pt, heads):
@@ -3310,6 +3498,7 @@ def main() -> int:
         run(phase_learned_small, torch)
         sparse = run(phase_sparse_conv, torch)
         ptv3 = run(phase_ptv3, torch)
+        ptv2 = run(phase_ptv2, torch)
         entry_launches = run(phase_entry, torch, RS, RV, card)
         splats = _learned_splats(torch, ckpt)
         serve, pairs, entries, work = run(phase_timing, torch, splats)
@@ -3402,6 +3591,8 @@ def main() -> int:
         {"name": "patch_attn", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/patch_attn.cu", "replaces": None,
          **ptv3},
+        {"name": "gva", "route": "cuda",
+         "source": "gpcr_tpu_torch/csrc/gva.cu", "replaces": None, **ptv2},
         {"name": "bin_stream", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/bin_stream.cu", "replaces": None,
          "launches": cell_bins, "bench_launches": bench_bins,

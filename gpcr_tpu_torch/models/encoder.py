@@ -2,8 +2,10 @@
 ``gpcr_tpu/models/encoder.py``, reference ``models/model_v2.py:238-375``).
 
 Runs a backbone over a quantized coloured voxel grid — the SparseUNet
-(``model_type`` "unet") or Point Transformer V3 with its Linear head
-(``model_type`` "ptv3", ``models/ptv3.py``) — and splits its output into
+(``model_type`` "unet"), Point Transformer V3 with its Linear head
+(``model_type`` "ptv3", ``models/ptv3.py``) or Point Transformer V2 with
+its seg head (``model_type`` "ptv2", ``models/ptv2.py``) — and splits its
+output into
 per-voxel Gaussian parameters with the reference activations:
 rotation = feat + [1,0,0,0]; scale = clamp(feat + 1, min=0); opacity =
 clamp(feat, 0, 1); offset = feat; SH DC = RGB2SH(input rgb) [+ learned
@@ -21,10 +23,12 @@ from torch import nn
 from ..ops import sparse
 from ..utils import trace
 from ..utils.sh import RGB2SH
+from .ptv2 import PointTransformerV2, PTv2Config
 from .ptv3 import PointTransformerV3, PTv3Config
 from .unet import SparseUNet
 
-_PTV3_KEYS = {f.name for f in dataclasses.fields(PTv3Config)}
+# the transformer backbones: model_type -> (PCMLInfo field, config class)
+_WIDTHS = {"ptv3": ("ptv3", PTv3Config), "ptv2": ("ptv2", PTv2Config)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,27 +49,32 @@ class PCMLInfo:
     scale_factor: int = 256
     model_type: str = "unet"
     normalize_camera_normal: bool = True
-    # model_type "ptv3": the backbone's widths; the input width is
-    # clr_encoder_channels' first entry
+    # model_type "ptv3" / "ptv2": the backbone's widths; the input width
+    # is clr_encoder_channels' first entry
     ptv3: T.Optional[PTv3Config] = None
+    ptv2: T.Optional[PTv2Config] = None
 
     def __post_init__(self):
-        if self.model_type == "ptv3" and self.ptv3 is None:
-            object.__setattr__(self, "ptv3",
-                               PTv3Config(in_channels=self.in_dim))
+        field, config = _WIDTHS.get(self.model_type, (None, None))
+        if field is not None and getattr(self, field) is None:
+            object.__setattr__(self, field, config(in_channels=self.in_dim))
 
     @staticmethod
     def from_dict(d: dict) -> "PCMLInfo":
-        """The fields ``d`` gives; for ``model_type`` "ptv3" also
-        PTv3Config's keys at the top level of ``d`` (lists as tuples)."""
-        names = {f.name for f in dataclasses.fields(PCMLInfo)} - {"ptv3"}
+        """The fields ``d`` gives; for ``model_type`` "ptv3" or "ptv2" also
+        the backbone config's keys at the top level of ``d`` (lists as
+        tuples)."""
+        names = {f.name for f in dataclasses.fields(PCMLInfo)} - {
+            field for field, _ in _WIDTHS.values()}
         info = PCMLInfo(**{k: v for k, v in d.items() if k in names})
-        if info.model_type != "ptv3":
+        if info.model_type not in _WIDTHS:
             return info
+        field, config = _WIDTHS[info.model_type]
+        keys = {f.name for f in dataclasses.fields(config)}
         widths = {k: tuple(v) if isinstance(v, list) else v
-                  for k, v in d.items() if k in _PTV3_KEYS}
+                  for k, v in d.items() if k in keys}
         widths["in_channels"] = info.in_dim
-        return dataclasses.replace(info, ptv3=PTv3Config(**widths))
+        return dataclasses.replace(info, **{field: config(**widths)})
 
     @property
     def channels(self) -> T.List[int]:
@@ -126,6 +135,10 @@ class PCEncoder(nn.Module):
         elif self.info.model_type == "ptv3":
             self.color_encoder = PointTransformerV3(
                 self.info.ptv3, self.info.feat_dim,
+                generator=generator)
+        elif self.info.model_type == "ptv2":
+            self.color_encoder = PointTransformerV2(
+                self.info.ptv2, self.info.feat_dim,
                 generator=generator)
         else:
             raise NotImplementedError(

@@ -80,8 +80,9 @@ class BatchNorm(nn.Module):
     """BatchNorm1d in evaluation: (x - running_mean) / sqrt(running_var +
     eps) * weight + bias."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, eps: float = BN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -89,7 +90,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, BN_EPS)
+                            self.weight, self.bias, False, 0.0, self.eps)
 
 
 class SubMConv(nn.Module):

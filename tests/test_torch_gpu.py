@@ -1216,3 +1216,152 @@ def test_ptv3_pass_on_the_card_matches_the_reference(cuda):
     assert PA.LAUNCHES - a0 == 22 and TSP.LAUNCHES - s0 == 5 + 22
     err = float((got - want).abs().max())
     assert err <= 1e-4, err
+
+
+# ---- Point Transformer V2: csrc/gva.cu and the plan's kNN -----------------
+
+# the GVA kernel against its plain version, both the folded function:
+# float32 sums in other orders (the W2 sums run over C <= 512 channels),
+# expf for exp, on outputs of |y| ~ 1
+GVA_REL = 1e-5
+
+
+def _gva_case(dev, n, groups, k, seed):
+    """Seeded q, k, v, a kNN list of random points, their relative
+    positions and an attention module's folded weights (seeded BatchNorm
+    statistics, so that no fold is an identity)."""
+    from gpcr_tpu_torch.models import ptv2 as P2
+    from gpcr_tpu_torch.ops import knn as KN
+
+    gen = torch.Generator().manual_seed(seed)
+    c = groups * 8
+    attn = P2.GroupedVectorAttention(c, groups, gen)
+    with torch.no_grad():
+        for bn in (attn.pe_norm, attn.we_norm):
+            m = bn.weight.shape[0]
+            bn.weight.copy_(1 + 0.1 * torch.randn(m, generator=gen))
+            bn.bias.copy_(0.1 * torch.randn(m, generator=gen))
+            bn.running_mean.copy_(0.1 * torch.randn(m, generator=gen))
+            bn.running_var.copy_(torch.exp(0.2 * torch.randn(
+                m, generator=gen)))
+    attn = attn.to(dev).eval()
+    pts = torch.rand((n, 3), generator=gen, dtype=torch.float64) * 40
+    nbr = KN.knn(pts.to(dev), 16, 4.0)
+    delta = (0.02 * (pts.to(dev)[nbr] - pts.to(dev)[:, None])).float()
+    qkv = torch.relu(torch.randn((3, n, c), generator=gen)).to(dev)
+    return (qkv[0].contiguous(), qkv[1].contiguous(),
+            qkv[2].contiguous() - 0.5, nbr.int().contiguous(),
+            delta.contiguous(), k, attn.folded())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups,k", [(6, 8), (6, 16), (12, 16), (24, 16),
+                                      (48, 16), (64, 16)])
+@pytest.mark.parametrize("n", [3000, 77])
+def test_gva_kernel_matches_plain(cuda, groups, k, n):
+    """Every stage width (C 48 / 96 / 192 / 384 / 512, and the patch
+    embedding's 8 neighbours at 48), a tile-ragged and a one-tile n:
+    within GVA_REL of the plain version's largest output, the same bits on
+    a second launch, every output written."""
+    from gpcr_tpu_torch.ops import gva as GV
+
+    args = _gva_case(cuda, n, groups, k, seed=groups * 100 + k + n)
+    with torch.no_grad():
+        before = GV.LAUNCHES
+        got = GV.grouped_vector_attention(*args)
+        again = GV.grouped_vector_attention(*args)
+        ref = GV.gva_plain(*args)
+        torch.cuda.synchronize()
+    assert GV.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    err = float((got - ref).abs().max())
+    assert err <= GVA_REL * float(ref.abs().max()), err
+
+
+@pytest.mark.gpu
+def test_refused_gva_launch_raises(cuda):
+    from gpcr_tpu_torch.ops import gva as GV
+
+    q, k, v, nbr, delta, kk, f = _gva_case(cuda, 100, 12, 16, seed=5)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="8 at 6 groups"):
+            GV.grouped_vector_attention(q, k, v, nbr, delta, 8, f)
+        with pytest.raises(ValueError, match="int32"):
+            GV.grouped_vector_attention(q, k, v, nbr.long(), delta, kk, f)
+
+
+def _ptv2_inputs(dev, points):
+    """The benchmark's cloud of ``points`` and the reference's seeded
+    full-width weights."""
+    from cellbench import scene
+    from cellbench.reference import ptv2 as REF
+
+    cloud = {"points": points, "scale_factor": 448, "offset": 512,
+             "grid": 1024, "radius": 0.55, "stretch_y": 1.6, "noise": 0.002}
+    seed = 2**31 + 101
+    xyz, rgb = scene.cloud(cloud, seed, dev)
+    w = REF.make_weights(REF.settings({}), 13, scene.generator(
+        seed, scene.STREAM_WEIGHTS, dev), dev)
+    return xyz, rgb, w
+
+
+def _ptv2_encoder(dev, xyz, rgb, w):
+    from gpcr_tpu_torch.models.encoder import (PCEncoder, PCMLInfo,
+                                               assemble_input_features)
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    info = PCMLInfo.from_dict({"model_type": "ptv2", "scale_factor": 448,
+                               "clr_encoder_channels": "9"})
+    enc = PCEncoder(info, generator=torch.Generator().manual_seed(0))
+    enc = enc.to(dev).eval()
+    enc.color_encoder.load_state_dict(w)
+    grid = TSP.quantize_average(
+        xyz, assemble_input_features(info, xyz, rgb, 512))
+    return enc, grid, enc.build_plan(grid)
+
+
+@pytest.mark.gpu
+def test_ptv2_plan_on_the_card_matches_the_reference_geometry(cuda):
+    """The plan's neighbour lists (the card's grid search, tie rule
+    included), relative positions and clusters at all five levels equal
+    the reference's brute force, bit for bit."""
+    from cellbench.reference import network
+    from cellbench.reference import ptv2 as REF
+
+    xyz, rgb, w = _ptv2_inputs(cuda, 110000)
+    enc, grid, plan = _ptv2_encoder(cuda, xyz, rgb, w)
+    vox, _ = network.voxelize(xyz, rgb)
+    levels = REF.hierarchy(vox, REF.settings({}))
+    for got, want in zip(plan["levels"], levels):
+        assert got.n == want.n
+        assert torch.equal(got.nbr.long(), want.nbr)
+        assert torch.equal(got.delta, want.delta)
+        if want.cluster is not None:
+            assert torch.equal(got.cluster, want.cluster)
+
+
+@pytest.mark.gpu
+def test_ptv2_pass_on_the_card_matches_the_reference(cuda):
+    """One full-width PTv2 pass (Pointcept's m2 base widths) at a
+    ~100K-voxel cloud, every grouped vector attention on the kernel,
+    against the plain (unfolded) reference on the card: the backbone at
+    1e-4 (float32 sums in other orders and the fold's, through 17
+    blocks)."""
+    from cellbench.reference import ptv2 as REF
+    from gpcr_tpu_torch.ops import gva as GV
+    from gpcr_tpu_torch.ops import patch_attn as PA
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    xyz, rgb, w = _ptv2_inputs(cuda, 110000)
+    enc, grid, plan = _ptv2_encoder(cuda, xyz, rgb, w)
+    g0, a0, s0 = GV.LAUNCHES, PA.LAUNCHES, TSP.LAUNCHES
+    with torch.no_grad():
+        got = enc.color_encoder.backbone(grid, plan)
+        torch.cuda.synchronize()
+        _, _, want, net, _ = REF.backbone(xyz, rgb, w, REF.settings({}), 448)
+    assert grid.num > 90000
+    assert GV.LAUNCHES - g0 == 17 and PA.LAUNCHES == a0
+    assert TSP.LAUNCHES == s0
+    err = float((got - want).abs().max())
+    assert err <= 1e-4, (err, float(want.abs().max()))
