@@ -360,6 +360,18 @@ def phase_build():
              RA.aligned_ring_stages(12, 256))):
         log(f"[build] ring of the {tag}: {stages} stages, {smem} bytes of "
             "shared memory per CTA")
+    # the sparse conv's ring per (Cin, Cout) of the U-Net and PTv3 passes
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    for cin, cout in ((9, 32), (32, 8), (8, 8), (8, 16), (64, 16),
+                      (16, 16), (16, 32), (64, 64), (128, 32), (32, 32),
+                      (32, 64), (128, 128), (256, 64), (64, 128),
+                      (256, 128), (128, 256), (256, 256), (512, 512)):
+        p = TSP.sparse_conv_plan(cin, cout)
+        log(f"[build] sparse conv {cin} -> {cout}: BN {p['bn']}, tile "
+            f"{p['tm']}x{p['tn']}, KC {p['kc']}, {p['groups']} group(s), "
+            f"{p['stages']} stages, {p['threads']} threads, {p['smem']} "
+            "bytes of shared memory per CTA")
 
 
 def _scene(torch, n, res, channels, seed, dev, overdraw=False):
@@ -840,24 +852,31 @@ def phase_sparse_conv(torch):
         for k in ("ms", "plain_ms", "bound_ms", "slots_ms", "pairs",
                   "slots"):
             agg[k] += r[k]
+    # the two levers apart: the fill (pairs / slots) and the per-slot
+    # efficiency (the computed slots' operations at peak / kernel time;
+    # = the pair bound by operations / time / fill)
     for agg in by.values():
         agg["fill"] = agg["pairs"] / agg["slots"]
+        agg["slot_eff"] = agg["slots_ms"] / agg["ms"]
     for (kind, lvl), agg in sorted(by.items()):
         log(f"[sparse] {kind} -> level {lvl} ({plan['grids'][lvl].num} rows):"
             f" {agg['convs']} convs, kernel {agg['ms']:.4f} ms, bound "
             f"{agg['bound_ms']:.4f} ms ({agg['bound_ms'] / agg['ms']:.1%}), "
             f"pairs {agg['pairs']}, slots {agg['slots']} (fill "
             f"{agg['fill']:.3f}; the slots at peak {agg['slots_ms']:.4f} "
-            f"ms), plain {agg['plain_ms']:.2f} ms")
+            f"ms, per-slot efficiency {agg['slot_eff']:.1%}), plain "
+            f"{agg['plain_ms']:.2f} ms")
     total = {k: sum(r[k] for r in records)
              for k in ("ms", "plain_ms", "bound_ms", "slots_ms", "pairs",
                        "slots")}
     total["fill"] = total["pairs"] / total["slots"]
+    total["slot_eff"] = total["slots_ms"] / total["ms"]
     log(f"[sparse] per pass: {len(records)} launches, kernels "
         f"{total['ms']:.4f} ms (bound {total['bound_ms']:.4f} ms, "
         f"{total['bound_ms'] / total['ms']:.1%}), pairs {total['pairs']}, "
         f"slots {total['slots']} (fill {total['fill']:.4f}; the slots at "
-        f"peak {total['slots_ms']:.4f} ms), plain {total['plain_ms']:.1f} "
+        f"peak {total['slots_ms']:.4f} ms, per-slot efficiency "
+        f"{total['slot_eff']:.1%}), plain {total['plain_ms']:.1f} "
         f"ms; U-Net pass {unet_ms:.4f} ms on the kernel, {ops_ms:.4f} ms "
         f"on the differentiable ops; plan {plan_s:.3f} s, kernel maps "
         f"{tiles_s:.3f} s; levels "

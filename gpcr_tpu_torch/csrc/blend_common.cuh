@@ -1,7 +1,9 @@
 // Pieces shared by the stream blend kernels (stream_blend.cu and
 // stream_blend_bwd.cu): the tile and warp-block geometry, cp.async staging,
-// the warp-block cull predicate and the diagnostic span record.
-// gpcr_tpu_torch/ops/cuda_build.py hashes this header with each source.
+// the warp-block cull predicate and the diagnostic span record; and the
+// mbarrier and bulk-copy pieces of their chunk ring, which sparse_conv.cu's
+// ring takes too. gpcr_tpu_torch/ops/cuda_build.py hashes this header with
+// each source.
 
 #pragma once
 

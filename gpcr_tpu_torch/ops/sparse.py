@@ -485,6 +485,20 @@ def _conv_map_cuda(cmap: ConvMap, feats, weight, bias, relu: bool):
     return out
 
 
+def sparse_conv_plan(cin: int, cout: int) -> dict:
+    """The parameters ``csrc/sparse_conv.cu`` takes for a (Cin, Cout)
+    conv (builds the library on first use): the consumer group's columns
+    ``bn``, its register tile ``tm`` x ``tn``, the chunk ``kc`` of Cin per
+    step, the consumer ``groups`` per CTA, the ring's ``stages``, the
+    CTA's ``threads`` and dynamic ``smem`` bytes."""
+    info = (ctypes.c_int * 8)()
+    rc = _sparse_conv_lib().gpcr_sparse_conv_plan(cin, cout, info)
+    if rc != 0:
+        raise ValueError(f"no sparse conv plan for {cin} -> {cout}")
+    return dict(zip(("bn", "tm", "tn", "kc", "groups", "stages", "threads",
+                     "smem"), info))
+
+
 def _sparse_conv_lib():
     lib = cuda_build.load("sparse_conv")
     if not getattr(lib, "_gpcr_typed", False):
@@ -492,6 +506,9 @@ def _sparse_conv_lib():
         lib.gpcr_sparse_conv.argtypes = [
             vp, ci, vp, ci, vp, vp, ci, vp, vp, ci, ci, vp, vp]
         lib.gpcr_sparse_conv.restype = ci
+        if hasattr(lib, "gpcr_sparse_conv_plan"):  # not in older builds
+            lib.gpcr_sparse_conv_plan.argtypes = [ci, ci, ctypes.POINTER(ci)]
+            lib.gpcr_sparse_conv_plan.restype = ci
         lib.gpcr_sparse_conv_tile_rows.argtypes = []
         lib.gpcr_sparse_conv_tile_rows.restype = ci
         lib.gpcr_sparse_conv_error_string.argtypes = [ci]

@@ -1065,6 +1065,61 @@ def test_sparse_conv_kernel_matches_plain(cuda, monkeypatch, kind, widths):
     assert seen
 
 
+def _edge_map(dev, n_src=500, seed=5):
+    """A cube ConvMap over a hand-made (300, 27) neighbour list whose tiles
+    reach the kernel's ring edges: rows 0-99 miss every offset (tile 0 of
+    the mask-sorted order has mask 0: no step at all), rows 100-199 hit
+    only offsets 0, 6 and 13 (tiles 1 and 2, whose masks skip the offsets
+    between), rows 200-299 each offset with probability one half."""
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    rng = np.random.RandomState(seed)
+    nbr = rng.randint(0, n_src, size=(300, 27))
+    nbr[:100] = -1
+    nbr[100:200][:, [k for k in range(27) if k not in (0, 6, 13)]] = -1
+    nbr[200:][rng.rand(100, 27) < 0.5] = -1
+    codes = torch.arange(n_src, device=dev)
+    src = TSP.SparseGrid(codes=codes, feats=codes[:, None].float())
+    dst = TSP.SparseGrid(codes=codes[:300], feats=codes[:300, None].float())
+    cmap = TSP.ConvMap("cube", src, dst)
+    cmap.tiles = TSP.tile_map(torch.from_numpy(nbr).to(dev))
+    return cmap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(9, 32), (32, 512), (12, 136),
+                                      (64, 16), (16, 13), (256, 256)])
+def test_sparse_conv_kernel_ring_edges(cuda, cin, cout):
+    """The kernel's ring at its edges, on ``_edge_map``: Cin 9 (4-byte
+    copies of A), Cin 12 (a row chunk shorter than KC), Cout 512 and 256
+    (two consumer groups per stage, two column blocks at 512), Cout 136 (a
+    ragged second group), Cout 13 (4-byte copies of W); an all-miss tile
+    equals the bias, ReLU'd. Held to the rounding limit against
+    ``conv_map_plain`` and to the same bits on a second launch."""
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    cmap = _edge_map(cuda)
+    tiles = cmap.tiled_map()
+    assert tiles.tile_masks[:3].tolist() == [0, 8257, 8257]
+    gen = torch.Generator(device=cuda).manual_seed(cin * 1000 + cout)
+    feats = torch.randn((cmap.src.num, cin), generator=gen, device=cuda)
+    w = torch.randn((27, cin, cout), generator=gen, device=cuda) * 0.1
+    b = torch.randn((cout,), generator=gen, device=cuda)
+    with torch.no_grad():
+        before = TSP.LAUNCHES
+        (got,) = TSP.conv_map(cmap, [feats], [w], [b], relu=True)
+        (again,) = TSP.conv_map(cmap, [feats], [w], [b], relu=True)
+        torch.cuda.synchronize()
+        assert TSP.LAUNCHES == before + 2
+        ref = TSP.conv_map_plain(tiles, feats, w, b, cmap.dst.num, relu=True)
+        scale = TSP.conv_map_plain(tiles, feats.abs(), w.abs(), b.abs(),
+                                   cmap.dst.num)
+    assert torch.equal(got, again)
+    excess = (got - ref).abs() - (SPARSE_REL * scale + SPARSE_ABS)
+    assert float(excess.max()) <= 0, float((got - ref).abs().max())
+    assert torch.equal(got[:100], torch.relu(b).expand(100, cout))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("widths", UNET_WIDTHS)
 def test_encoder_on_the_kernel_matches_the_differentiable_ops(cuda, widths):
