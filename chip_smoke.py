@@ -263,7 +263,7 @@ PTV3_BLOCKS, ATTN_ABS, PTV3_TOL = 22, 1e-5, 1e-4
 # the benchmark's cells (cellbench/workloads/) and the seed of their one
 # request each in phase_cell_binning
 CELLS = ("pcml800k.circle12", "ptv3_800k.circle12", "splat800k.orbit16",
-         "ptv2_800k.circle12", "splat800k.orbit1")
+         "ptv2_800k.circle12", "splat800k.orbit1", "swin3d_800k.circle12")
 CELL_SEED = 2**31 + 101
 # PTv3's sparse convs per encode: the 5³ stem as five launches of 25
 # offsets, and one 3³ CPE conv per block
@@ -274,6 +274,12 @@ PTV3_CONVS = 5 + PTV3_BLOCKS
 # the plain output's largest value; the backbone against the benchmark
 # reference (unfolded) through 17 blocks
 PTV2_BLOCKS, GVA_REL, PTV2_TOL = 17, 1e-5, 1e-4
+# Swin3D-S: window attentions per pass (encoder 2 4 9 4 4, decoder 1 1 1
+# 1); the window attention kernel against its plain version (the same
+# form, float32 sums in other orders and the histogram's atomics)
+# relative to the plain output's largest value; the backbone against the
+# benchmark reference (the pair form) through 27 blocks
+SWIN3D_BLOCKS, SWIN_REL, SWIN3D_TOL = 27, 1e-5, 1e-4
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -314,7 +320,8 @@ def phase_build():
     from gpcr_tpu_torch.ops import cuda_build
 
     names = ("stream_blend", "stream_blend_bwd", "aligned_blend",
-             "sparse_conv", "patch_attn", "bin_stream", "preprocess", "gva")
+             "sparse_conv", "patch_attn", "bin_stream", "preprocess", "gva",
+             "swin_attn")
     t0 = time.time()
 
     def load(name):
@@ -342,7 +349,7 @@ def phase_build():
         for i, line in enumerate(lines):
             if "Compiling entry" in line and (name in (
                     "sparse_conv", "patch_attn", "bin_stream",
-                    "preprocess", "gva") or any(
+                    "preprocess", "gva", "swin_attn") or any(
                     f"ILi{c}E" in line for c in (3, 9, 12))):
                 for shown in lines[i:i + 4]:
                     log(f"[build] {name}: " + shown.strip())
@@ -1299,6 +1306,182 @@ def phase_ptv2(torch):
                 max_rel_err=worst, pass_max_abs_err=pass_err,
                 per_level={f"L{lvl}": agg for lvl, agg in by.items()},
                 **{f"gva_{k}": v for k, v in total.items()},
+                library_ms=None)
+
+
+def phase_swin3d(torch):
+    """Swin3D-S (``model_type`` "swin3d") through its cell's own program
+    (``swin3d_800k.circle12``: the cell's seeded cloud, weights and
+    cameras): one ``PCMLRender.render`` of the 12-view ring with the launch
+    counters reset, which must launch SWIN3D_BLOCKS window attentions and
+    one sparse conv (the stem) per encode and no other attention, its
+    counters logged (``swin_window_max``, ``swin_attn_pairs``). On the
+    renderer's grid and cached plan: per level the cells, positions,
+    cross-set kNN lists and weights against the reference's brute force (0
+    mismatches); every window attention of one pass held against the
+    plain version (SWIN_REL) and timed (CUDA events) beside its least-work
+    bound (``[swin3d-attn]`` per level); the backbone against the
+    reference (SWIN3D_TOL). Returns the record for the kernels line."""
+    from cellbench import harness, scene, systems
+    from cellbench.reference import network
+    from cellbench.reference import swin3d as REF
+    from gpcr_tpu_torch.ops import gva as GV
+    from gpcr_tpu_torch.ops import patch_attn as PA
+    from gpcr_tpu_torch.ops import sparse as TSP
+    from gpcr_tpu_torch.ops import swin_attn as SA
+    from gpcr_tpu_torch.utils import trace
+
+    dev = torch.device("cuda")
+    cell = harness.load_cell("swin3d_800k.circle12")
+    cfg, traffic = cell["config"], cell["traffic"]
+    system = systems.load(cfg["renderer"])
+    inputs = system.make_inputs(cfg, CELL_SEED, dev)
+    prog = system.Program(cfg, traffic, inputs, dev)
+    cams = scene.Cameras(traffic, CELL_SEED, dev)
+    timing = {}
+    torch.cuda.synchronize()
+    SA.LAUNCHES = GV.LAUNCHES = PA.LAUNCHES = TSP.LAUNCHES = 0
+    with harness.quiet(), trace.recording() as rec:
+        out = prog(cams.request(0), timing)
+        torch.cuda.synchronize()
+    counted = {k: v for c in rec.counters.values() for k, v in c.items()
+               if k.startswith(("swin", "knn"))}
+    launches = SA.LAUNCHES
+    coverage = float((out["hitmap"] > 0).any(-1).float().mean())
+    log(f"[swin3d] render of 12 views at 512² x2 (the plan built in it): "
+        f"model time {timing['model_time']:.4f} s, rgb time "
+        f"{timing['rgb_time']:.4f} s, coverage {coverage:.4f}, swin_attn "
+        f"launches {launches}, sparse conv {TSP.LAUNCHES}, gva "
+        f"{GV.LAUNCHES}, patch attention {PA.LAUNCHES}; counters {counted}")
+    check(coverage > 0, "the Swin3D render covers no pixel")
+    check(launches == 2 * SWIN3D_BLOCKS and TSP.LAUNCHES == 2
+          and GV.LAUNCHES == PA.LAUNCHES == 0,
+          f"{launches} window attention, {TSP.LAUNCHES} sparse conv, "
+          f"{GV.LAUNCHES} gva and {PA.LAUNCHES} patch attention launches in "
+          f"a request: not {SWIN3D_BLOCKS} and 1 per encode and nothing else")
+    del out
+
+    rdr = prog.rdr
+    model = rdr.model.color_encoder
+    s = REF.settings(cfg["pcml_info"])
+    with torch.no_grad():
+        _, grid, plan = rdr.encode(prog.pcd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.build_plan(grid)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        vox, _ = network.voxelize(inputs["xyz"], inputs["rgb"])
+        t0 = time.perf_counter()
+        levels = REF.hierarchy(vox, s)
+        ref_s = time.perf_counter() - t0
+    mismatches = []
+    for got, want in zip(plan["levels"], levels):
+        check(got.n == want.n and torch.equal(got.cells, want.cells)
+              and torch.equal(got.pos, want.pos),
+              f"a plan level of {got.n} points differs from the reference's")
+        bad = 0
+        if want.down is not None:
+            bad += int((got.down_nbr != want.down).any(1).sum())
+        if want.up is not None:
+            bad += int((got.up_nbr != want.up).any(1).sum())
+            check(bad or torch.equal(got.up_w, want.up_w),
+                  "the interpolation weights differ from the reference's")
+        mismatches.append(bad)
+    wins = [w for lv in plan["levels"] for w in lv.windows]
+    log(f"[swin3d-knn] levels {[lv.n for lv in plan['levels']]}: plan "
+        f"{plan_s:.3f} s (reference brute force {ref_s:.1f} s); kNN "
+        f"mismatches against the reference per level {mismatches}; windows "
+        f"per level and shift {[w.count for w in wins]}, largest "
+        f"{[w.most for w in wins]}, pairs {[w.pairs for w in wins]}")
+    check(sum(mismatches) == 0, f"kNN mismatches {mismatches}")
+    del levels
+
+    calls, real = [], SA.window_attention
+    level_of = {id(w.perm): i for i, lv in enumerate(plan["levels"])
+                for w in lv.windows}
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    SA.window_attention = record
+    try:
+        with torch.no_grad():
+            model.backbone(grid, plan)
+    finally:
+        SA.window_attention = real
+    check(len(calls) == SWIN3D_BLOCKS, f"{len(calls)} attentions in a pass")
+    records, worst = [], 0.0
+    for args in calls:
+        qkv, win, sig, t, heads = args
+        n, c = qkv.shape[0], qkv.shape[1] // 3
+        with torch.no_grad():
+            got = real(*args)
+            t1 = time.perf_counter()
+            ref = SA.window_attention_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t1) * 1e3
+            err = float((got - ref).abs().max())
+            rel = err / max(float(ref.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            check(rel <= SWIN_REL, f"swin_attn at {c} channels, {heads} heads "
+                  f"disagrees with its plain version: max|d| {err} "
+                  f"({rel:.2e} of the largest output)")
+            del got, ref
+            ms = _event_ms(torch, lambda: real(*args), 5)
+        ops = REF.attn_least_ops(win.pairs, heads, c // heads)
+        nbytes = REF.attn_least_bytes(n, win.count, c, t.q.shape[0])
+        records.append(dict(level=level_of[id(win.perm)], n=n, c=c, ms=ms,
+                            plain_ms=plain_ms, most=win.most,
+                            pairs=win.pairs * heads,
+                            bound_ms=max(ops / PEAK_FLOPS,
+                                         nbytes / PEAK_BYTES) * 1e3))
+    del calls
+    by = {}
+    for r in records:
+        agg = by.setdefault(r["level"], dict(launches=0, c=r["c"], ms=0.0,
+                                             plain_ms=0.0, bound_ms=0.0,
+                                             pairs=0, most=0))
+        agg["launches"] += 1
+        agg["most"] = max(agg["most"], r["most"])
+        for key in ("ms", "plain_ms", "bound_ms", "pairs"):
+            agg[key] += r[key]
+    for lvl, agg in sorted(by.items()):
+        log(f"[swin3d-attn] level {lvl} ({plan['levels'][lvl].n} points, C "
+            f"{agg['c']}, largest window {agg['most']}): {agg['launches']} "
+            f"launches, {agg['pairs']} (pair, head) products, kernel "
+            f"{agg['ms']:.4f} ms, bound {agg['bound_ms']:.4f} ms "
+            f"({agg['bound_ms'] / agg['ms']:.1%}), plain "
+            f"{agg['plain_ms']:.1f} ms")
+
+    with torch.no_grad():
+        pass_ms = _event_ms(torch, lambda: model(grid, plan), 3)
+        got = model.backbone(grid, plan)
+        _, _, want, _, _ = REF.backbone(inputs["xyz"], inputs["rgb"],
+                                        inputs["weights"], s,
+                                        cfg["cloud"]["scale_factor"])
+    pass_err = float((got - want).abs().max())
+    log(f"[swin3d] backbone against the reference: max|d| {pass_err:.3e} on "
+        f"outputs of max {float(want.abs().max()):.3f}, rms "
+        f"{float(want.pow(2).mean().sqrt()):.3f}")
+    check(pass_err <= SWIN3D_TOL, f"the Swin3D pass disagrees with the "
+          f"reference: max|d| {pass_err}")
+    total = {k: sum(r[k] for r in records)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[swin3d] per pass: {len(records)} swin_attn launches, kernels "
+        f"{total['ms']:.4f} ms (bound {total['bound_ms']:.4f} ms, "
+        f"{total['bound_ms'] / total['ms']:.1%}), plain "
+        f"{total['plain_ms']:.1f} ms; Swin3D pass {pass_ms:.4f} ms; worst "
+        f"relative max|d| {worst:.3e}, pass against the reference "
+        f"{pass_err:.3e}")
+    del prog, inputs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, pass_ms=pass_ms, plan_s=plan_s,
+                knn_mismatches=mismatches, max_rel_err=worst,
+                pass_max_abs_err=pass_err,
+                per_level={f"L{lvl}": agg for lvl, agg in by.items()},
+                **{f"swin_attn_{k}": v for k, v in total.items()},
                 library_ms=None)
 
 
@@ -3518,6 +3701,7 @@ def main() -> int:
         sparse = run(phase_sparse_conv, torch)
         ptv3 = run(phase_ptv3, torch)
         ptv2 = run(phase_ptv2, torch)
+        swin3d = run(phase_swin3d, torch)
         entry_launches = run(phase_entry, torch, RS, RV, card)
         splats = _learned_splats(torch, ckpt)
         serve, pairs, entries, work = run(phase_timing, torch, splats)
@@ -3612,6 +3796,9 @@ def main() -> int:
          **ptv3},
         {"name": "gva", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/gva.cu", "replaces": None, **ptv2},
+        {"name": "swin_attn", "route": "cuda",
+         "source": "gpcr_tpu_torch/csrc/swin_attn.cu", "replaces": None,
+         **swin3d},
         {"name": "bin_stream", "route": "cuda",
          "source": "gpcr_tpu_torch/csrc/bin_stream.cu", "replaces": None,
          "launches": cell_bins, "bench_launches": bench_bins,

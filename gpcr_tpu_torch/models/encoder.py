@@ -3,9 +3,10 @@
 
 Runs a backbone over a quantized coloured voxel grid — the SparseUNet
 (``model_type`` "unet"), Point Transformer V3 with its Linear head
-(``model_type`` "ptv3", ``models/ptv3.py``) or Point Transformer V2 with
-its seg head (``model_type`` "ptv2", ``models/ptv2.py``) — and splits its
-output into
+(``model_type`` "ptv3", ``models/ptv3.py``), Point Transformer V2 with
+its seg head (``model_type`` "ptv2", ``models/ptv2.py``) or Swin3D with
+its classifier (``model_type`` "swin3d", ``models/swin3d.py``) — and splits
+its output into
 per-voxel Gaussian parameters with the reference activations:
 rotation = feat + [1,0,0,0]; scale = clamp(feat + 1, min=0); opacity =
 clamp(feat, 0, 1); offset = feat; SH DC = RGB2SH(input rgb) [+ learned
@@ -25,10 +26,14 @@ from ..utils import trace
 from ..utils.sh import RGB2SH
 from .ptv2 import PointTransformerV2, PTv2Config
 from .ptv3 import PointTransformerV3, PTv3Config
+from .swin3d import Swin3DConfig, Swin3DUNet
 from .unet import SparseUNet
 
-# the transformer backbones: model_type -> (PCMLInfo field, config class)
-_WIDTHS = {"ptv3": ("ptv3", PTv3Config), "ptv2": ("ptv2", PTv2Config)}
+# the transformer backbones: model_type -> (PCMLInfo field, config class,
+# model class)
+_WIDTHS = {"ptv3": ("ptv3", PTv3Config, PointTransformerV3),
+           "ptv2": ("ptv2", PTv2Config, PointTransformerV2),
+           "swin3d": ("swin3d", Swin3DConfig, Swin3DUNet)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,27 +54,28 @@ class PCMLInfo:
     scale_factor: int = 256
     model_type: str = "unet"
     normalize_camera_normal: bool = True
-    # model_type "ptv3" / "ptv2": the backbone's widths; the input width
-    # is clr_encoder_channels' first entry
+    # model_type "ptv3" / "ptv2" / "swin3d": the backbone's widths; the
+    # input width is clr_encoder_channels' first entry
     ptv3: T.Optional[PTv3Config] = None
     ptv2: T.Optional[PTv2Config] = None
+    swin3d: T.Optional[Swin3DConfig] = None
 
     def __post_init__(self):
-        field, config = _WIDTHS.get(self.model_type, (None, None))
+        field, config, _ = _WIDTHS.get(self.model_type, (None, None, None))
         if field is not None and getattr(self, field) is None:
             object.__setattr__(self, field, config(in_channels=self.in_dim))
 
     @staticmethod
     def from_dict(d: dict) -> "PCMLInfo":
-        """The fields ``d`` gives; for ``model_type`` "ptv3" or "ptv2" also
-        the backbone config's keys at the top level of ``d`` (lists as
-        tuples)."""
+        """The fields ``d`` gives; for a transformer ``model_type`` ("ptv3",
+        "ptv2", "swin3d") also the backbone config's keys at the top level
+        of ``d`` (lists as tuples)."""
         names = {f.name for f in dataclasses.fields(PCMLInfo)} - {
-            field for field, _ in _WIDTHS.values()}
+            field for field, _, _ in _WIDTHS.values()}
         info = PCMLInfo(**{k: v for k, v in d.items() if k in names})
         if info.model_type not in _WIDTHS:
             return info
-        field, config = _WIDTHS[info.model_type]
+        field, config, _ = _WIDTHS[info.model_type]
         keys = {f.name for f in dataclasses.fields(config)}
         widths = {k: tuple(v) if isinstance(v, list) else v
                   for k, v in d.items() if k in keys}
@@ -132,14 +138,11 @@ class PCEncoder(nn.Module):
         if self.info.model_type == "unet":
             self.color_encoder = SparseUNet(
                 self.info.channels, self.info.feat_dim, generator=generator)
-        elif self.info.model_type == "ptv3":
-            self.color_encoder = PointTransformerV3(
-                self.info.ptv3, self.info.feat_dim,
-                generator=generator)
-        elif self.info.model_type == "ptv2":
-            self.color_encoder = PointTransformerV2(
-                self.info.ptv2, self.info.feat_dim,
-                generator=generator)
+        elif self.info.model_type in _WIDTHS:
+            field, _, model = _WIDTHS[self.info.model_type]
+            self.color_encoder = model(getattr(self.info, field),
+                                       self.info.feat_dim,
+                                       generator=generator)
         else:
             raise NotImplementedError(
                 f"Model type {self.info.model_type} not implemented!")

@@ -197,26 +197,50 @@ class LevelPlan:
     n_next: int = 0
 
 
-def grid_pool(c: torch.Tensor, size: float):
-    """(cluster (n,) int64, cluster coordinates (m, 3) float64): cells of
-    ``size`` from the level's minimum, clusters in ascending cell id, the
-    members' coordinates summed in ascending member order."""
-    start = c.min(dim=0).values
+def grid_cluster(c: torch.Tensor, size: float,
+                 origin: T.Optional[float] = None) -> torch.Tensor:
+    """(n,) int64 cluster of each point: cells of ``size`` counted from
+    ``origin`` (torch_cluster's ``grid_cluster`` from the level's minimum
+    without it; Minkowski's pooling counts from 0), clusters in ascending
+    cell id."""
+    start = c.min(dim=0).values if origin is None else origin
     rel = c - start
     cell = torch.floor(rel / size).long()
     dims = torch.floor(rel.max(dim=0).values / size).long() + 1
     ids = cell[:, 0] + dims[0] * cell[:, 1] + dims[0] * dims[1] * cell[:, 2]
-    _, cluster = torch.unique(ids, sorted=True, return_inverse=True)
+    return torch.unique(ids, sorted=True, return_inverse=True)[1]
+
+
+def members_table(cluster: torch.Tensor) -> torch.Tensor:
+    """(m, most) int64: each cluster's members in ascending order, padded
+    with n (a row past the end)."""
+    n = cluster.shape[0]
     members = torch.argsort(cluster, stable=True)
     counts = torch.bincount(cluster)
-    slot = (torch.arange(c.shape[0], device=c.device)
+    slot = (torch.arange(n, device=cluster.device)
             - (torch.cumsum(counts, 0) - counts)[cluster[members]])
-    padded = c.new_zeros((counts.shape[0], int(counts.max()), 3))
-    padded[cluster[members], slot] = c[members]
-    total = padded[:, 0]
-    for col in range(1, padded.shape[1]):
-        total = total + padded[:, col]
-    return cluster, total / counts[:, None].to(c.dtype)
+    table = cluster.new_full((counts.shape[0], int(counts.max())), n)
+    table[cluster[members], slot] = members
+    return table
+
+
+def ordered_mean(values: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(m, F) means of ``values`` (n, F) over ``members_table``'s rows, the
+    members summed left to right in ascending order."""
+    padded = torch.cat([values, values.new_zeros((1, values.shape[1]))])
+    total = padded[table[:, 0]]
+    for col in range(1, table.shape[1]):
+        total = total + padded[table[:, col]]
+    counts = (table < values.shape[0]).sum(dim=1)
+    return total / counts[:, None].to(values.dtype)
+
+
+def grid_pool(c: torch.Tensor, size: float):
+    """(cluster (n,) int64, cluster coordinates (m, 3) float64):
+    ``grid_cluster``'s clusters from the level's minimum and the members'
+    mean coordinates."""
+    cluster = grid_cluster(c, size)
+    return cluster, ordered_mean(c, members_table(cluster))
 
 
 class PointTransformerV2(nn.Module):

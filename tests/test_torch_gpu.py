@@ -1420,3 +1420,139 @@ def test_ptv2_pass_on_the_card_matches_the_reference(cuda):
     assert TSP.LAUNCHES == s0
     err = float((got - want).abs().max())
     assert err <= 1e-4, (err, float(want.abs().max()))
+
+
+# ---- Swin3D: csrc/swin_attn.cu and the plan's cross-set kNN ---------------
+
+# the window attention kernel against its plain version, the same form:
+# float32 sums in other orders (softmax over up to 343 keys, the value
+# histogram's shared atomics in no fixed order), expf for exp
+SWIN_REL = 1e-5
+
+
+def _swin_case(dev, w, heads, d, shift, seed):
+    """Seeded qkv, signals, tables and a partition whose windows hold a
+    full w^3 block (split by the shift when it is on), single points, and
+    a scatter; the tables at 0.3 so that every term weighs."""
+    from gpcr_tpu_torch.ops import swin_attn as SA
+
+    gen = torch.Generator().manual_seed(seed)
+    r = torch.arange(w)
+    block = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                        -1).reshape(-1, 3)
+    lone = torch.tensor([[10 * w, 0, 0], [0, 10 * w, 0], [0, 0, 10 * w]])
+    scatter = torch.randint(w, 7 * w, (1500, 3), generator=gen)
+    cells = torch.unique(torch.cat([block, lone, scatter]), dim=0)
+    n = cells.shape[0]
+    pos = cells.float() + 0.9 * torch.rand((n, 3), generator=gen)
+    col = (2 * torch.rand((n, 3), generator=gen) - 1) / 1.001
+    sig = torch.cat([pos, col], 1).to(dev).contiguous()
+    quant = 4
+    lp, lc = 2 * w * quant, 2 * 2 * 2 * quant
+    rows = 3 * lp + 3 * lc
+    tabs = [(0.3 * torch.randn((rows, heads, d), generator=gen)).to(dev)
+            for _ in range(3)]
+    t = SA.Tables(q=tabs[0], k=tabs[1], v=tabs[2], lp=lp, lc=lc,
+                  qp=float(quant), qc=float(2 * quant))
+    qkv = torch.randn((n, 3 * heads * d), generator=gen).to(dev)
+    win = SA.partition(cells.to(dev), w, shift)
+    return qkv, win, sig, t, heads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,heads,d", [(5, 6, 8), (7, 6, 16), (7, 12, 16),
+                                       (7, 24, 16)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_swin_attn_kernel_matches_plain(cuda, w, heads, d, shifted):
+    """Every Swin3D-S width (d 8 at w 5, d 16 at w 7, H 6 to 24) over
+    windows of 1 point, of w^3 points (125 / 343) and a scatter, unshifted
+    and shifted: within SWIN_REL of the plain version's largest output,
+    every output written, one launch each."""
+    from gpcr_tpu_torch.ops import swin_attn as SA
+
+    args = _swin_case(cuda, w, heads, d, w // 2 if shifted else 0,
+                      seed=w * 100 + heads + d + shifted)
+    win = args[1]
+    counts = (win.offsets[1:] - win.offsets[:-1]).tolist()
+    assert 1 in counts
+    if not shifted:  # the block fills one window, over several chunks
+        assert win.most == w ** 3 and w ** 3 > 32
+    with torch.no_grad():
+        before = SA.LAUNCHES
+        got = SA.window_attention(*args)
+        ref = SA.window_attention_plain(*args)
+        torch.cuda.synchronize()
+    assert SA.LAUNCHES == before + 1
+    assert bool(torch.isfinite(got).all())
+    err = float((got - ref).abs().max())
+    assert err <= SWIN_REL * float(ref.abs().max()), err
+
+
+@pytest.mark.gpu
+def test_refused_swin_attn_launch_raises(cuda):
+    from gpcr_tpu_torch.ops import swin_attn as SA
+
+    qkv, win, sig, t, heads = _swin_case(cuda, 5, 6, 8, 0, seed=3)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="head dim"):
+            SA.window_attention(qkv[:, :3 * 6 * 4].contiguous(), win, sig,
+                                t, 6)
+        with pytest.raises(ValueError, match="int32"):
+            SA.window_attention(qkv, win._replace(perm=win.perm.long()), sig,
+                                t, heads)
+
+
+def _swin3d_encoder(dev, points):
+    from cellbench import scene
+    from cellbench.reference import swin3d as REF
+    from gpcr_tpu_torch.models.encoder import (PCEncoder, PCMLInfo,
+                                               assemble_input_features)
+    from gpcr_tpu_torch.ops import sparse as TSP
+
+    cloud = {"points": points, "scale_factor": 448, "offset": 512,
+             "grid": 1024, "radius": 0.55, "stretch_y": 1.6, "noise": 0.002}
+    seed = 2**31 + 103
+    xyz, rgb = scene.cloud(cloud, seed, dev)
+    w = REF.make_weights(REF.settings({}), 13, scene.generator(
+        seed, scene.STREAM_WEIGHTS, dev), dev)
+    info = PCMLInfo.from_dict({"model_type": "swin3d", "scale_factor": 448,
+                               "clr_encoder_channels": "9"})
+    enc = PCEncoder(info, generator=torch.Generator().manual_seed(0))
+    enc = enc.to(dev).eval()
+    enc.color_encoder.load_state_dict(w)
+    grid = TSP.quantize_average(
+        xyz, assemble_input_features(info, xyz, rgb, 512))
+    return xyz, rgb, w, enc, grid, enc.build_plan(grid)
+
+
+@pytest.mark.gpu
+def test_swin3d_plan_and_pass_on_the_card_match_the_reference(cuda):
+    """A full-width Swin3D-S pass at a ~100K-voxel cloud: the plan's cells,
+    positions, cross-set kNN lists (the card's grid search) and weights
+    equal the reference's brute force bit for bit at all five levels; all
+    27 window attentions launch the kernel; the backbone within 1e-4 of
+    the reference (float32 sums in other orders through 27 blocks)."""
+    from cellbench.reference import network
+    from cellbench.reference import swin3d as REF
+    from gpcr_tpu_torch.ops import swin_attn as SA
+
+    xyz, rgb, w, enc, grid, plan = _swin3d_encoder(cuda, 110000)
+    vox, _ = network.voxelize(xyz, rgb)
+    with torch.no_grad():
+        levels = REF.hierarchy(vox, REF.settings({}))
+    for got, want in zip(plan["levels"], levels):
+        assert got.n == want.n and torch.equal(got.cells, want.cells)
+        assert torch.equal(got.pos, want.pos)
+        if want.down is not None:
+            assert torch.equal(got.down_nbr, want.down)
+        if want.up is not None:
+            assert torch.equal(got.up_nbr, want.up)
+            assert torch.equal(got.up_w, want.up_w)
+    a0 = SA.LAUNCHES
+    with torch.no_grad():
+        got = enc.color_encoder.backbone(grid, plan)
+        torch.cuda.synchronize()
+        _, _, want, _, _ = REF.backbone(xyz, rgb, w, REF.settings({}), 448)
+    assert grid.num > 90000 and SA.LAUNCHES - a0 == 27
+    err = float((got - want).abs().max())
+    assert err <= 1e-4, (err, float(want.abs().max()))
